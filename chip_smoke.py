@@ -1,0 +1,471 @@
+#!/usr/bin/env python3
+"""On-card smoke run of radixhashjoin_tpu_torch, the PyTorch + CUDA port.
+
+    python3 chip_smoke.py          # from the repo root, one CUDA card
+
+Phases (any failure raises and exits non-zero; nothing is swallowed):
+
+  0. the card (nvidia-smi name + power limit), torch and CUDA versions;
+  1. build the hand-written kernels (csrc/tables.cu) with nvcc;
+  2. each kernel against its plain PyTorch version on the card, at the
+     main path's shapes: element-exact (torch.equal), timed with CUDA
+     events (warm-up, then 20 launches of each);
+  3. the CLI on a synthetic catalog shaped like the contest's `small`
+     set (14 relations, ~270K uint64 tuples, 50 tree-shaped queries in
+     5 batches): once as a subprocess, once in-process through
+     models/engine.main; both must print the lines of the port's NumPy
+     oracle (oracle.py), and the in-process run must go through both
+     kernels;
+  4. data scale through Engine.run_workload: a Zipf(1.1) fact of 2^27
+     rows over 2^20 keys joined with a 2^20-row dimension, and a star of
+     a 2^24-row fact with two 2^20-row dimensions, each against its
+     closed-form NumPy oracle.
+
+Prints the kernels' JSON summary, then as its last line
+{"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
+and prints no result.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+# BASELINE config 4 asks for >= 100M fact rows: 2^27 (134M) meets it and
+# stays below the 2^28-row huge-node threshold, so the ported non-huge
+# wave runs; the star keeps scripts/bench_scale.py's 2^24-row fact
+ZIPF_ROWS = 1 << 27
+STAR_ROWS = 1 << 24
+DIM_KEYS = 1 << 20
+
+
+def _nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _max_abs_err(a, b) -> int:
+    if a.numel() == 0:
+        return 0
+    return int((a.long() - b.long()).abs().max())
+
+
+# ---- phase 2: kernels vs their plain versions ----
+
+def _zipf_keys(gen, n, n_keys, device, s=1.1):
+    """Inverse-CDF power law over [0, n_keys), the scripts/bench_scale.py
+    generator: rank ~ u^(-1/(s-1)), clipped to the last key."""
+    import torch
+    u = torch.rand(n, generator=gen, device=device, dtype=torch.float32)
+    r = torch.clamp(u.clamp_min(1e-30) ** (-1.0 / (s - 1.0)),
+                    max=n_keys - 1)
+    return r.to(torch.int32)
+
+
+def phase_kernels(dev):
+    import torch
+    from radixhashjoin_tpu_torch import kernels
+    from radixhashjoin_tpu_torch.ops.tables import (table_gather_torch,
+                                                    weighted_bincount_torch)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs = {"bincount": 0, "gather": 0}
+
+    def check(name, got, want, shape):
+        err = _max_abs_err(got, want)
+        errs[name] = max(errs[name], err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} {shape}: kernel != plain "
+                                 f"(max abs err {err})")
+
+    def bincount_case(label, idx, w, n_bins, timed):
+        got = kernels.weighted_bincount_cuda(idx, w, n_bins)
+        want = weighted_bincount_torch(idx, w, n_bins)
+        torch.cuda.synchronize()
+        check("bincount", got, want, label)
+        row = {"kernel": "bincount", "case": label, "exact": True}
+        if timed:
+            row["ms"] = _time_ms(
+                lambda: kernels.weighted_bincount_cuda(idx, w, n_bins))
+            row["plain_ms"] = _time_ms(
+                lambda: weighted_bincount_torch(idx, w, n_bins))
+        print(json.dumps(row))
+        return row
+
+    # main-path shape: a message-table build at 2^26 Zipf-skewed rows
+    # into 2^20 bins, ~10% masked rows on the sentinel, a few -1s;
+    # weights < 100 keep the hot bin (~25% of rows) below 2^31
+    n, bins = 1 << 26, 1 << 20
+    idx = _zipf_keys(gen, n, bins, dev)
+    sent = torch.rand(n, generator=gen, device=dev) < 0.1
+    idx = torch.where(sent, bins, idx)
+    idx[:: 1 << 22] = -1
+    w = torch.randint(0, 100, (n,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    main_b = bincount_case("zipf1.1 n=2^26 bins=2^20", idx, w, bins, True)
+    # the same build with uniform keys: the difference is hot-key cost
+    idx = torch.randint(0, bins, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    bincount_case("uniform n=2^26 bins=2^20", idx, w, bins, True)
+    del idx, w, sent
+    n, bins = 1 << 24, 1024
+    idx = torch.randint(0, bins, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    w = torch.randint(0, 1000, (n,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    bincount_case("uniform n=2^24 bins=1024", idx, w, bins, True)
+    for n, bins in ((5000, 700), (1, 700), (0, 700)):
+        idx = torch.randint(0, bins + 1, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        w = torch.randint(0, 1 << 20, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        bincount_case(f"n={n} bins={bins}", idx, w, bins, False)
+
+    def gather_case(label, table, keys, timed):
+        got = kernels.table_gather_cuda(table, keys)
+        want = table_gather_torch(table, keys)
+        torch.cuda.synchronize()
+        check("gather", got, want, label)
+        row = {"kernel": "gather", "case": label, "exact": True}
+        if timed:
+            row["ms"] = _time_ms(lambda: kernels.table_gather_cuda(table,
+                                                                   keys))
+            row["plain_ms"] = _time_ms(lambda: table_gather_torch(table,
+                                                                  keys))
+        print(json.dumps(row))
+        return row
+
+    bins = 1 << 20
+    table = torch.randint(-2**31, 2**31 - 1, (bins,), generator=gen,
+                          device=dev, dtype=torch.int32)
+    keys = torch.randint(-1000, bins + 1000, (1 << 26,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    main_g = gather_case("unsorted n=2^26 bins=2^20", table, keys, True)
+    keys = torch.sort(torch.randint(0, bins, (1 << 24,), generator=gen,
+                                    device=dev, dtype=torch.int32)).values
+    gather_case("sorted n=2^24 bins=2^20", table, keys, True)
+    del keys
+    for n, b in ((1, 77), (1001, 77), (4097, 1000), (0, 77)):
+        t = table[:b].contiguous()
+        k = torch.randint(-3, b + 3, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        gather_case(f"n={n} bins={b}", t, k, False)
+    return {"bincount": main_b, "gather": main_g}, errs
+
+
+# ---- phase 3: the CLI on a contest-shaped synthetic catalog ----
+
+def make_contest_catalog(rng, n_rel=14, total=270_000):
+    """14 uint64 relations, ~270K tuples in all: column 0 a dense id,
+    further columns foreign keys into a shared 2^15 domain or payload
+    values below 2^20 (the contest's value ranges)."""
+    sizes = rng.dirichlet(np.full(n_rel, 2.0)) * total
+    rels = []
+    for n in np.maximum(sizes.astype(np.int64), 50):
+        cols = [rng.permutation(n).astype(np.uint64)]
+        for _ in range(int(rng.integers(1, 5))):
+            hi = int(rng.choice([1 << 15, 1 << 20]))
+            cols.append(rng.integers(0, hi, n).astype(np.uint64))
+        rels.append(cols)
+    return rels
+
+
+def make_tree_queries(rng, rels, n_queries=50, batch=10):
+    """Tree-shaped queries (every join attaches a fresh slot, 1-3 joins),
+    1-2 filters, 1-3 projections, batches of `batch` ended by F."""
+    lines = []
+    for qi in range(n_queries):
+        nslots = int(rng.integers(2, 5))
+        slots = [int(rng.integers(0, len(rels))) for _ in range(nslots)]
+        ncols = [len(rels[s]) for s in slots]
+        preds = []
+        for s in range(1, nslots):
+            p = int(rng.integers(0, s))
+            preds.append(f"{p}.{int(rng.integers(0, ncols[p]))}="
+                         f"{s}.{int(rng.integers(0, ncols[s]))}")
+        for _ in range(int(rng.integers(1, 3))):
+            s = int(rng.integers(0, nslots))
+            c = int(rng.integers(0, ncols[s]))
+            col = rels[slots[s]][c]
+            op = str(rng.choice(["<", ">", "="], p=[0.45, 0.45, 0.1]))
+            k = int(col[int(rng.integers(0, len(col)))])
+            preds.append(f"{s}.{c}{op}{k}")
+        projs = [f"{int(s)}.{int(rng.integers(0, ncols[s]))}"
+                 for s in rng.integers(0, nslots, int(rng.integers(1, 4)))]
+        lines.append(f"{' '.join(map(str, slots))}|{'&'.join(preds)}|"
+                     f"{' '.join(projs)}")
+        if qi % batch == batch - 1:
+            lines.append("F")
+    return lines
+
+
+def phase_cli(dev):
+    import torch
+    from radixhashjoin_tpu_torch import kernels
+    from radixhashjoin_tpu_torch.config import EngineConfig
+    from radixhashjoin_tpu_torch.models.engine import main
+    from radixhashjoin_tpu_torch.oracle import run_workload
+    from radixhashjoin_tpu_torch.storage import load_relation, write_relation
+    from radixhashjoin_tpu_torch.workload import parse_work_stream
+
+    rng = np.random.default_rng(2018)
+    rels = make_contest_catalog(rng)
+    work = make_tree_queries(rng, rels)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i, cols in enumerate(rels):
+            paths.append(os.path.join(tmp, f"r{i}"))
+            write_relation(paths[-1], cols)
+        stream = "\n".join(paths + ["Done"] + work) + "\n"
+        t0 = time.perf_counter()
+        loaded = [load_relation(p) for p in paths]
+        want = run_workload(loaded, parse_work_stream(work))
+        oracle_s = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "radixhashjoin_tpu_torch", "--device",
+             dev.type], input=stream, capture_output=True, text=True,
+            cwd=REPO, timeout=600)
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI exit {proc.returncode}:\n"
+                                 f"{proc.stderr[-4000:]}")
+        if proc.stdout.splitlines() != want:
+            raise AssertionError("CLI lines differ from the oracle's")
+
+        # the main path's run: counts from zero, in-process
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        engine = main(io.StringIO(stream), out, EngineConfig(), device=dev)
+        first_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        if out.getvalue().splitlines() != want:
+            raise AssertionError("in-process lines differ from the oracle's")
+        if dev.type == "cuda" and min(launches.values()) == 0:
+            raise AssertionError(f"main path skipped a kernel: {launches}")
+        counters = dict(engine.batch_executor.counters)
+        batches = parse_work_stream(work)
+        t0 = time.perf_counter()
+        again = engine.run_workload(batches)
+        warm_s = time.perf_counter() - t0
+        if again != want:
+            raise AssertionError("warm rerun differs from the oracle")
+        profile = (_profile(lambda: engine.run_workload(batches))
+                   if dev.type == "cuda" else "not measured")
+    n_null = sum(line.startswith("NULL") for line in want)
+    print(json.dumps({
+        "phase": "cli", "queries": len(want), "null_lines": n_null,
+        "tuples": int(sum(len(c[0]) for c in rels)),
+        "lines_equal_oracle": True, "cli_subprocess_s": cli_s,
+        "inprocess_first_s": first_s, "inprocess_warm_s": warm_s,
+        "oracle_s": oracle_s, "counters": counters,
+        "launches": launches, "device_profile": profile}))
+    return launches
+
+
+# ---- phase 4: data scale ----
+
+def _scale_run(name, rels, q, expected, n_tuples, dev):
+    import torch
+    from radixhashjoin_tpu_torch import kernels
+    from radixhashjoin_tpu_torch.config import EngineConfig
+    from radixhashjoin_tpu_torch.models.engine import Engine
+
+    before = dict(kernels.LAUNCHES)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    eng = Engine(rels, EngineConfig(), device=dev)
+    t0 = time.perf_counter()
+    got = eng.run_workload([[q]])
+    first_s = time.perf_counter() - t0
+    if got != expected:
+        raise AssertionError(f"{name}: {got} != oracle {expected}")
+    if eng.batch_executor.counters["ftree_queries"] != 1:
+        raise AssertionError(f"{name}: not on the factorized path")
+    grew = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    if dev.type == "cuda" and min(grew.values()) == 0:
+        raise AssertionError(f"{name}: a kernel was not launched: {grew}")
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        if eng.run_workload([[q]]) != expected:
+            raise AssertionError(f"{name}: warm rerun differs")
+        warm.append(time.perf_counter() - t0)   # ends in a readback
+    warm_s = float(np.median(warm))
+    line = {"phase": "scale", "cell": name, "join_input_tuples": n_tuples,
+            "first_run_s": first_s, "warm_query_s": warm,
+            "tuples_per_s": n_tuples / warm_s, "launches": grew,
+            "exact": True}
+    if dev.type == "cuda":
+        line["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        line["device_profile"] = _profile(lambda: eng.run_workload([[q]]))
+    return line
+
+
+def _profile(run, top=8):
+    """One warm run under torch.profiler: its host wall time, the summed
+    device time of its kernels (one stream, so they do not overlap) and
+    the top kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_s = time.perf_counter() - t0
+    rows = []
+    for ev in prof.key_averages():
+        dt = getattr(ev, "device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "cuda_time_total", 0)
+        if dt and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((dt, ev.key, ev.count))
+    rows.sort(reverse=True)
+    if not rows:
+        return "not measured (profiler recorded no device time)"
+    return {"wall_s_profiled": wall_s,
+            "device_us_total": sum(r[0] for r in rows),
+            "kernel_launches": sum(r[2] for r in rows),
+            "top": [{"kernel": k[:80], "device_us": dt, "calls": c}
+                    for dt, k, c in rows[:top]]}
+
+
+def phase_scale(dev, zipf_rows=ZIPF_ROWS, star_rows=STAR_ROWS,
+                n_keys=DIM_KEYS):
+    from radixhashjoin_tpu_torch.storage import Relation
+    from radixhashjoin_tpu_torch.workload import (FilterPred, JoinPred,
+                                                  Projection, Query)
+    rng = np.random.default_rng(0)
+    print(json.dumps({"phase": "scale", "note": (
+        f"zipf fact 2^{zipf_rows.bit_length() - 1} rows (BASELINE config 4 "
+        f"asks >= 100M), star fact 2^{star_rows.bit_length() - 1} rows "
+        f"(scripts/bench_scale.py's size)")}))
+    lines = []
+
+    # BASELINE config 4 (scripts/bench_scale.py:253-279)
+    t0 = time.perf_counter()
+    u = rng.random(zipf_rows) + 1e-12
+    zk = np.minimum(u ** (-1.0 / 0.1), n_keys - 1).astype(np.uint64)
+    del u
+    fact = Relation([zk, rng.integers(0, 1000, zipf_rows).astype(np.uint64)])
+    dim = Relation([np.arange(n_keys, dtype=np.uint64),
+                    rng.integers(0, 1000, n_keys).astype(np.uint64)])
+    load_s = time.perf_counter() - t0
+    q = Query([0, 1], [JoinPred(0, 0, 1, 0)], [FilterPred(1, 1, "<", 900)],
+              [Projection(0, 1), Projection(1, 1)])
+    keep = dim.values[1] < 900
+    wk = keep[zk.astype(np.int64)]
+    exp0 = int(fact.values[1][wk].sum(dtype=np.uint64))
+    cnt = np.bincount(zk[wk].astype(np.int64),
+                      minlength=n_keys).astype(np.uint64)
+    exp1 = int((dim.values[1] * cnt * keep).sum(dtype=np.uint64))
+    line = _scale_run("zipf", [fact, dim], q, [f"{exp0} {exp1}"],
+                      zipf_rows + n_keys, dev)
+    line["load_s"] = load_s
+    lines.append(line)
+    print(json.dumps(line))
+    del fact, dim, zk, wk
+
+    # star (scripts/bench_scale.py:195-218): fact JOIN dim1 JOIN dim2
+    t0 = time.perf_counter()
+    k1 = rng.integers(0, n_keys, star_rows).astype(np.uint64)
+    k2 = rng.integers(0, n_keys, star_rows).astype(np.uint64)
+    fact = Relation([k1, k2,
+                     rng.integers(0, 1000, star_rows).astype(np.uint64)])
+    dims = [Relation([np.arange(n_keys, dtype=np.uint64),
+                      rng.integers(0, 1000, n_keys).astype(np.uint64)])
+            for _ in range(2)]
+    load_s = time.perf_counter() - t0
+    q = Query([0, 1, 2], [JoinPred(0, 0, 1, 0), JoinPred(0, 1, 2, 0)],
+              [FilterPred(1, 1, "<", 900)],
+              [Projection(0, 2), Projection(1, 1), Projection(2, 1)])
+    # unique dim keys: fact row r joins exactly one row of each dim, and
+    # participates iff dim1's row passes the filter
+    live = dims[0].values[1][k1.astype(np.int64)] < 900
+    exp = [int(fact.values[2][live].sum(dtype=np.uint64)),
+           int(dims[0].values[1][k1[live].astype(np.int64)]
+               .sum(dtype=np.uint64)),
+           int(dims[1].values[1][k2[live].astype(np.int64)]
+               .sum(dtype=np.uint64))]
+    line = _scale_run("star", [fact] + dims, q, [" ".join(map(str, exp))],
+                      star_rows + 2 * n_keys, dev)
+    line["load_s"] = load_s
+    lines.append(line)
+    print(json.dumps(line))
+    return lines
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this "
+              "script needs one CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from radixhashjoin_tpu_torch import kernels
+    dev = torch.device("cuda", 0)
+
+    print(_nvidia_smi())
+    print(json.dumps({"phase": "env", "torch": torch.__version__,
+                      "cuda": torch.version.cuda,
+                      "device": torch.cuda.get_device_name(0),
+                      "python": sys.version.split()[0]}))
+    b = kernels.build()
+    print(json.dumps({"phase": "build", "seconds": b["seconds"],
+                      "library": os.path.relpath(b["path"], REPO),
+                      "ptxas": [ln.strip() for ln in b["log"].splitlines()
+                                if "Used" in ln or "spill" in ln]}))
+    timed, errs = phase_kernels(dev)
+    launches = phase_cli(dev)
+    phase_scale(dev)
+    for pkg in ("jax", "radixhashjoin_tpu"):
+        if pkg in sys.modules:
+            raise AssertionError(f"the port's run imported {pkg}")
+    src = "radixhashjoin_tpu_torch/csrc/tables.cu"
+    print(json.dumps({"kernels": [
+        {"name": "weighted_bincount_cuda", "route": "cuda", "source": src,
+         "replaces": "radixhashjoin_tpu/ops/tables.py:283",
+         "launches": launches["bincount"],
+         "max_abs_err": errs["bincount"], "ms": timed["bincount"]["ms"],
+         "plain_ms": timed["bincount"]["plain_ms"]},
+        {"name": "table_gather_cuda", "route": "cuda", "source": src,
+         "replaces": "radixhashjoin_tpu/ops/tables.py:564",
+         "launches": launches["gather"],
+         "max_abs_err": errs["gather"], "ms": timed["gather"]["ms"],
+         "plain_ms": timed["gather"]["plain_ms"]}]}))
+    print(_nvidia_smi())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

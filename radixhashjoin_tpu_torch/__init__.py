@@ -1,0 +1,33 @@
+"""radixhashjoin_tpu_torch — the PyTorch + CUDA port of radixhashjoin_tpu.
+
+The same engine (SIGMOD-2018-contest stream protocol: uint64 columnar
+relations, filters, equi-join pipelines, exact u64 SUM projections),
+written in PyTorch for an NVIDIA H100 with hand-written Hopper kernels
+for the message-table build and lookup. `radixhashjoin_tpu` stays the
+reference: every module here names its counterpart there, and the tests
+hold both packages to identical results on the same inputs.
+
+Slice covered so far: the factorized main path. Every tree-shaped query
+of a batch plans on the host (models/batch.py), runs as ONE level-batched
+message-passing wave (ops/factorized.py) whose build and lookup kernels
+live in csrc/tables.cu, and folds its SUMs exactly in int64
+(utils/limbs.py). Whatever needs code that is not ported yet raises
+NotImplementedError naming ROADMAP.md.
+
+This package imports neither jax nor radixhashjoin_tpu: its host
+modules (config, storage, workload, oracle) are its own, each naming
+its counterpart.
+
+Layout:
+  config, storage, workload, oracle — host side: settings, relation
+             files, stream parsing, the NumPy oracle and line format
+  models   — Engine facade, batch executor + host tree planner, catalog
+  ops      — factorized wave, fused stage runner, table build/lookup
+  utils    — padding policy, exact int64 folds
+  kernels  — nvcc build + ctypes binding of csrc/tables.cu
+"""
+
+from .config import EngineConfig
+from .models.engine import Engine
+
+__all__ = ["Engine", "EngineConfig"]

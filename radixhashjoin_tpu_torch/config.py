@@ -1,0 +1,85 @@
+"""Engine configuration of the port (counterpart: radixhashjoin_tpu/config.py).
+
+Field names and defaults are the reference's for everything the ported
+factorized path reads. Fields whose non-default values need code that is
+not ported yet are kept too, so that a setting carried over from the
+reference raises NotImplementedError at construction instead of being
+ignored. The reference's knobs for layers the port does not have yet
+(speculative expansion, radix exchange, skew handling, limb chunking,
+the native host runtime) are not fields here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    # --- shape bucketing: padded sizes are min_pad * pad_base**k ---
+    min_pad: int = 1024
+    pad_base: int = 2
+
+    # --- factorized message-table kernels (ops/tables.py) ---
+    # "auto" and "onehot" run the hand-written CUDA kernels on a CUDA
+    # device and their plain PyTorch versions on the CPU.
+    ftree_scatter: str = "auto"
+    ftree_gather: str = "auto"
+
+    # --- execution backend ---
+    # "auto": the dense direct-address path when the catalog's value
+    # domain fits max_dense_domain (int32 entries: 2**24 -> 64 MB table
+    # on the device); "dense" forces it.
+    join_backend: str = "auto"
+    max_dense_domain: int = 1 << 24
+
+    # --- settings that need unported code (non-defaults raise) ---
+    force_oracle: bool = False
+    batch_execution: bool = True
+    fuse_stages: bool = True
+    factorized: bool = True
+    # every query of a batch runs in ONE level-batched wave (one round)
+    ftree_wave: bool = True
+    stage_group: Optional[int] = None
+    ftree_window_sort: str = "auto"
+    enable_join_reordering: bool = False
+    profile: bool = False
+    mesh_devices: Optional[int] = None
+
+    def __post_init__(self) -> None:
+        check_config(self)
+
+
+# EngineConfig fields whose non-default values need code that is not
+# ported yet: field -> (allowed values, what it needs)
+_UNPORTED = {
+    "mesh_devices": ((None,), "the distributed layer (item 9)"),
+    "enable_join_reordering": ((False,), "the join-order planner (item 8)"),
+    "force_oracle": ((False,), "the oracle route (the port has no quiet "
+                               "route to the oracle)"),
+    "batch_execution": ((True,), "the per-query executor (item 7)"),
+    "factorized": ((True,), "the materialized fallback (item 7)"),
+    "fuse_stages": ((True,), "the per-op execution path (item 7)"),
+    "ftree_wave": ((True,), "per-query ftree ops, kept out until an A/B "
+                            "on the H100 decides them (item 11)"),
+    "stage_group": ((None,), "rounds of grouped queries, kept out until "
+                             "an A/B on the H100 decides them (item 11)"),
+    "join_backend": (("auto", "dense"), "the sort join backend (item 7)"),
+    "ftree_window_sort": (("auto", "off"),
+                          "the huge-node sorted windows (item 6)"),
+    "profile": ((False,), "the per-operator profiler"),
+}
+
+
+def check_config(config: EngineConfig) -> None:
+    """Raise NotImplementedError for a config that needs unported code."""
+    for field, (allowed, needs) in _UNPORTED.items():
+        value = getattr(config, field)
+        if value not in allowed:
+            raise NotImplementedError(
+                f"EngineConfig({field}={value!r}) needs {needs}, which is "
+                f"not ported yet (ROADMAP.md, 'Modules to port')")
+
+
+DEFAULT = EngineConfig()

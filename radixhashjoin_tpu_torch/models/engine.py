@@ -1,0 +1,107 @@
+"""Engine facade: catalog + batch executor + workload runner (counterpart:
+radixhashjoin_tpu/models/engine.py:26-157).
+
+Relations load once (storage.py), every query batch runs on the device
+the caller names, and results print in input order with the reference
+binary's stdin/stdout contract.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import List, Optional, Sequence, TextIO
+
+import torch
+
+from ..config import DEFAULT, EngineConfig
+from ..oracle import format_result
+from ..storage import Relation, load_relation
+from ..workload import Query, parse_init_stream, parse_work_stream
+from .batch import BatchExecutor
+
+
+class Engine:
+    """End-to-end engine over a set of loaded relations, on one device."""
+
+    def __init__(self, relations: Sequence[Relation],
+                 config: EngineConfig = DEFAULT, *,
+                 device: torch.device):
+        self.relations = list(relations)
+        self.config = config
+        self.device = torch.device(device)
+        self.batch_executor = BatchExecutor(self.relations, config,
+                                            device=self.device)
+
+    @classmethod
+    def from_paths(cls, paths: Sequence[str],
+                   config: EngineConfig = DEFAULT, *,
+                   device: torch.device) -> "Engine":
+        return cls([load_relation(p) for p in paths], config, device=device)
+
+    def run_batch_raw(self, batch: Sequence[Query]
+                      ) -> List[Optional[List[int]]]:
+        """One query batch on the device: per-query sums (None = NULL
+        line), unformatted."""
+        return self.batch_executor.run_batch(list(batch))
+
+    def run_batch(self, batch: Sequence[Query]) -> List[str]:
+        out = self.run_batch_raw(batch)
+        return [format_result(r, len(q.projections))
+                for r, q in zip(out, batch)]
+
+    def run_workload_raw(self, batches: Sequence[Sequence[Query]]
+                         ) -> List[Optional[List[int]]]:
+        """All batches at once: batch framing is parse-level only (the
+        reference also schedules every query of every batch before
+        printing), and one mega-batch maximizes the wave's width."""
+        return self.run_batch_raw([q for batch in batches for q in batch])
+
+    def run_workload(self, batches: Sequence[Sequence[Query]]) -> List[str]:
+        raw = self.run_workload_raw(batches)
+        queries = [q for batch in batches for q in batch]
+        return [format_result(r, len(q.projections))
+                for r, q in zip(raw, queries)]
+
+
+def resolve_device(device) -> torch.device:
+    """The device a run asked for; a CUDA device without a card raises
+    (never a silent CPU)."""
+    dev = torch.device(device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA device requested but torch.cuda.is_available() is "
+                "False (run on device 'cpu', --device cpu on the command "
+                "line, for the plain PyTorch versions)")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def main(stdin: TextIO = None, stdout: TextIO = None,
+         config: EngineConfig = DEFAULT, device="cuda") -> Engine:
+    """stdin-protocol entry point, contract-identical to the reference
+    binary: relation paths until `Done`, then query batches
+    (`F`-terminated), then one result line per query in input order.
+    Returns the engine (its executor's counters describe the run)."""
+    dev = resolve_device(device)
+    stdin = stdin or sys.stdin
+    stdout = stdout or sys.stdout
+    paths = parse_init_stream(stdin)
+    try:
+        engine = Engine.from_paths(paths, config, device=dev)
+    except (OSError, AssertionError) as e:
+        print(f"radixhashjoin_tpu_torch: cannot load relations: {e}",
+              file=sys.stderr)
+        raise SystemExit(1)
+    try:
+        batches = parse_work_stream(stdin)
+    except (ValueError, IndexError) as e:
+        print(f"radixhashjoin_tpu_torch: malformed work stream: {e}",
+              file=sys.stderr)
+        raise SystemExit(1)
+    for line in engine.run_workload(batches):
+        stdout.write(line + "\n")
+    return engine

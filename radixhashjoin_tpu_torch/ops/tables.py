@@ -1,0 +1,80 @@
+"""Message-table build (weighted bincount) and lookup (counterpart:
+radixhashjoin_tpu/ops/tables.py:119,283,314,564,616).
+
+The factorized wave's two data-sized primitives:
+
+    build:  B = zeros(n_bins); B[idxs] += weights   (out-of-range dropped)
+    lookup: g = B[keys]                             (out-of-range -> 0)
+
+Each has a plain PyTorch version here and a hand-written Hopper kernel
+(csrc/tables.cu, bound by kernels.py). Dispatch follows the tensor's
+device and nothing else: a CPU tensor takes the plain version, a CUDA
+tensor launches the kernel or raises.
+
+`impl` keeps the reference's dispatch argument. "auto" and "onehot" both
+mean the dispatch above ("onehot" names the Pallas build kernel the CUDA
+build replaces). The reference's TPU-shaped variants ("mxu", "hier",
+"sorted", "xla") are not ported and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+
+PORTED_IMPLS = ("auto", "onehot")
+
+
+def check_impl(impl: str) -> None:
+    if impl not in PORTED_IMPLS:
+        raise NotImplementedError(
+            f"table kernel impl {impl!r} is not ported (ported: "
+            f"{PORTED_IMPLS}); the TPU-shaped variants are listed in "
+            f"ROADMAP.md under 'TPU kernels to port'")
+
+
+def weighted_bincount_torch(idxs: torch.Tensor, weights: torch.Tensor,
+                            n_bins: int) -> torch.Tensor:
+    """Plain version of the build: int32[n_bins] weighted bincount with
+    indices outside [0, n_bins) dropped, like the reference's
+    `.at[idxs].add(weights, mode="drop")`. index_add_ has no drop mode
+    (on CUDA an out-of-range index device-asserts), so dropped rows land
+    in a spare slot past the end."""
+    ok = (idxs >= 0) & (idxs < n_bins)
+    safe = torch.where(ok, idxs, n_bins)
+    out = torch.zeros(n_bins + 1, dtype=torch.int32, device=idxs.device)
+    out.index_add_(0, safe, weights.to(torch.int32))
+    return out[:n_bins]
+
+
+def table_gather_torch(table: torch.Tensor, keys: torch.Tensor
+                       ) -> torch.Tensor:
+    """Plain version of the lookup: table[keys], 0 where a key is outside
+    [0, len(table))."""
+    n_bins = table.shape[0]
+    if n_bins == 0:
+        return torch.zeros(keys.shape[0], dtype=torch.int32,
+                           device=keys.device)
+    ok = (keys >= 0) & (keys < n_bins)
+    g = table.index_select(0, torch.where(ok, keys, 0))
+    return torch.where(ok, g, 0)
+
+
+def scatter_table(idxs: torch.Tensor, weights: torch.Tensor, n_bins: int,
+                  impl: str = "auto") -> torch.Tensor:
+    """B = zeros(n_bins); B[idxs] += weights, out-of-range dropped."""
+    check_impl(impl)
+    if idxs.device.type == "cpu":
+        return weighted_bincount_torch(idxs, weights, n_bins)
+    return kernels.weighted_bincount_cuda(idxs, weights, n_bins)
+
+
+def table_gather(table: torch.Tensor, keys: torch.Tensor,
+                 impl: str = "auto") -> torch.Tensor:
+    """g = table[keys], out-of-range -> 0 (the wave's keys are in range by
+    the planner's width construction; the bound test is free)."""
+    check_impl(impl)
+    if keys.device.type == "cpu":
+        return table_gather_torch(table, keys)
+    return kernels.table_gather_cuda(table, keys)

@@ -1,0 +1,131 @@
+"""The port's host modules (radixhashjoin_tpu_torch: config, storage,
+workload, oracle) against their counterparts in the JAX package, on the
+same files, streams and queries: equal values, stats, parsed queries and
+result lines (exact, tolerance 0).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from radixhashjoin_tpu import config as jconfig
+from radixhashjoin_tpu import oracle as joracle
+from radixhashjoin_tpu import storage as jstorage
+from radixhashjoin_tpu import workload as jworkload
+from radixhashjoin_tpu_torch import config as tconfig
+from radixhashjoin_tpu_torch import oracle as toracle
+from radixhashjoin_tpu_torch import storage as tstorage
+from radixhashjoin_tpu_torch import workload as tworkload
+
+from test_factorized import _rels
+
+torch.set_num_threads(1)
+
+U64 = np.uint64
+
+
+def _stream_lines(rng, rels, n_queries=24):
+    """Random work-stream lines: joins of any shape (cycles, same-slot
+    and case-1 wipes included), filters, projections, F every 5."""
+    lines = []
+    for qi in range(n_queries):
+        nslots = int(rng.integers(1, 5))
+        slots = [int(rng.integers(0, len(rels))) for _ in range(nslots)]
+        ncols = [rels[s].num_columns for s in slots]
+        preds = []
+        for _ in range(int(rng.integers(0, 4))):
+            a, b = (int(x) for x in rng.integers(0, nslots, 2))
+            preds.append(f"{a}.{int(rng.integers(0, ncols[a]))}"
+                         f"{rng.choice(['=', '<', '>'])}"
+                         f"{b}.{int(rng.integers(0, ncols[b]))}")
+        for _ in range(int(rng.integers(0, 3))):
+            s = int(rng.integers(0, nslots))
+            preds.append(f"{s}.{int(rng.integers(0, ncols[s]))}"
+                         f"{rng.choice(['=', '<', '>'])}"
+                         f"{int(rng.integers(0, 70))}")
+        projs = [f"{int(s)}.0" for s in rng.integers(0, nslots,
+                                                     int(rng.integers(1, 4)))]
+        lines.append(f"{' '.join(map(str, slots))}|{'&'.join(preds)}|"
+                     f"{' '.join(projs)}")
+        if qi % 5 == 4:
+            lines.append("F")
+    return lines
+
+
+def _fields(q):
+    return (q.slots, [dataclasses.astuple(j) for j in q.joins],
+            [dataclasses.astuple(f) for f in q.filters],
+            [dataclasses.astuple(p) for p in q.projections], q.text)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_parse_and_oracle_match_reference(seed):
+    rng = np.random.default_rng(300 + seed)
+    jrels = _rels(rng, vmax=16)
+    trels = [tstorage.Relation(list(r.values)) for r in jrels]
+    lines = _stream_lines(rng, jrels)
+    ours = tworkload.parse_work_stream(ln + "\n" for ln in lines)
+    ref = jworkload.parse_work_stream(ln + "\n" for ln in lines)
+    assert [[_fields(q) for q in b] for b in ours] == \
+        [[_fields(q) for q in b] for b in ref]
+    got = toracle.run_workload(trels, ours)
+    want = joracle.run_workload(jrels, ref)
+    assert got == want
+    assert any(line.startswith("NULL") for line in want)
+    assert any(not line.startswith("NULL") for line in want)
+
+
+def test_oracle_wraps_u64_like_reference():
+    top = 2**64 - 3
+    cols = [np.array([top, top, 5], U64), np.array([1, 1, 2], U64)]
+    q = "0 0|0.1=1.1|0.0 1.0"
+    trel, jrel = tstorage.Relation(cols), jstorage.Relation(cols)
+    got = toracle.run_workload([trel], [[tworkload.parse_query(q)]])
+    want = joracle.run_workload([jrel], [[jworkload.parse_query(q)]])
+    assert got == want == [f"{(4 * top + 5) % 2**64} {(4 * top + 5) % 2**64}"]
+
+
+def test_init_stream_matches_reference():
+    lines = ["r0\n", "\n", "/data/r1\n", "Done\n", "0 1|0.0=1.0|0.0\n"]
+    assert (tworkload.parse_init_stream(iter(lines))
+            == jworkload.parse_init_stream(iter(lines)) == ["r0", "/data/r1"])
+
+
+def test_relation_files_and_stats_match_reference(tmp_path):
+    rng = np.random.default_rng(7)
+    cols = [rng.integers(0, 2**63, 500, dtype=np.uint64),
+            rng.integers(0, 40, 500).astype(U64),
+            np.full(500, 2**31 - 1, U64)]
+    path = str(tmp_path / "r0")
+    tstorage.write_relation(path, cols)
+    jpath = str(tmp_path / "j0")
+    jstorage.write_relation(jpath, cols)
+    assert open(path, "rb").read() == open(jpath, "rb").read()
+    ours, ref = tstorage.load_relation(path), jstorage.load_relation(path)
+    assert (ours.num_tuples, ours.num_columns) == (ref.num_tuples,
+                                                   ref.num_columns)
+    for a, b in zip(ours.values, ref.values):
+        np.testing.assert_array_equal(a, b)
+    assert ([dataclasses.astuple(s) for s in ours.stats]
+            == [dataclasses.astuple(s) for s in ref.stats])
+    for c in (1, 2):
+        np.testing.assert_array_equal(ours.narrow_column(c),
+                                      ref.narrow_column(c))
+    empty = tstorage.Relation([np.zeros(0, U64)])
+    assert dataclasses.astuple(empty.stats[0]) == (0, 0, 0)
+    with open(path, "ab") as f:
+        f.write(b"\0" * 8)
+    with pytest.raises(AssertionError, match="size mismatch"):
+        tstorage.load_relation(path)
+
+
+def test_config_defaults_match_reference():
+    """Every field the port keeps has the reference's default, except
+    stage_group (the port runs a batch as one round)."""
+    ours = dataclasses.asdict(tconfig.EngineConfig())
+    ref = dataclasses.asdict(jconfig.EngineConfig())
+    assert set(ours) <= set(ref)
+    assert {k: v for k, v in ours.items() if v != ref[k]} == {
+        "stage_group": None}
