@@ -6,24 +6,37 @@
 Phases (any failure raises and exits non-zero; nothing is swallowed):
 
   0. the card (nvidia-smi name + power limit), torch and CUDA versions;
-  1. build the hand-written kernels (csrc/tables.cu) with nvcc;
+  1. build the hand-written kernels (csrc/tables.cu, csrc/radix.cu)
+     with nvcc, one process per source, started together;
   2. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes: element-exact (torch.equal), timed with CUDA
-     events (warm-up, then 20 launches of each);
+     shapes its path gives it: element-exact (torch.equal), timed with
+     CUDA events (warm-up, then 20 launches of each); the partition and
+     the 18-bit radix sort built on the rank kernel against
+     torch.sort(stable=True);
   3. the CLI on a synthetic catalog shaped like the contest's `small`
      set (14 relations, ~270K uint64 tuples, 50 tree-shaped queries in
      5 batches): once as a subprocess, once in-process through
      models/engine.main; both must print the lines of the port's NumPy
-     oracle (oracle.py), and the in-process run must go through both
-     kernels;
+     oracle (oracle.py), and the in-process run must go through the
+     build and lookup kernels;
+  3b. the same catalog through `--no-batch` (the per-query executor):
+     the 50 tree queries plus 20 queries the batch path refuses
+     (cycles, same-slot predicates, no joins), as a subprocess and
+     in-process; every line equals the oracle's and the tree queries'
+     lines equal the batch path's;
   4. data scale through Engine.run_workload: a Zipf(1.1) fact of 2^27
      rows over 2^20 keys joined with a 2^20-row dimension, and a star of
      a 2^24-row fact with two 2^20-row dimensions, each against its
-     closed-form NumPy oracle.
+     closed-form NumPy oracle; the star again through the per-query
+     executor, and a cyclic triangle of 2^20-row relations through it
+     against the port's oracle;
+  5. the kernel shootout, `bench_kernels --log-rows 26`, in-process:
+     its lines, and the launches of its run (the radix kernels' path).
 
-Prints the kernels' JSON summary, then as its last line
-{"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
-and prints no result.
+Prints the kernels' JSON summary, the card's name and power limit, then
+as its last line {"ok": true, "device": {...}}. Without a CUDA card it
+exits 2 and prints no result; where the package is missing its import
+fails and it exits 1.
 """
 
 from __future__ import annotations
@@ -46,6 +59,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 ZIPF_ROWS = 1 << 27
 STAR_ROWS = 1 << 24
 DIM_KEYS = 1 << 20
+TRIANGLE_ROWS = 1 << 20
+SHOOTOUT_LOG_ROWS = 26
+
+# the factorized wave's kernels; the radix kernels run on the shootout
+WAVE_KERNELS = ("bincount", "gather")
 
 
 def _nvidia_smi() -> str:
@@ -55,18 +73,10 @@ def _nvidia_smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def _time_ms(fn) -> float:
+    """CUDA-event mean of 20 calls after 3 warm-up calls."""
+    from radixhashjoin_tpu_torch.bench_kernels import time_ms
+    return time_ms(fn, iters=20)
 
 
 def _max_abs_err(a, b) -> int:
@@ -174,7 +184,84 @@ def phase_kernels(dev):
         k = torch.randint(-3, b + 3, (n,), generator=gen, device=dev,
                           dtype=torch.int32)
         gather_case(f"n={n} bins={b}", t, k, False)
-    return {"bincount": main_b, "gather": main_g}, errs
+    del table
+    timed = {"bincount": main_b, "gather": main_g}
+    timed.update(_phase_radix_kernels(dev, gen, errs))
+    return timed, errs
+
+
+def _phase_radix_kernels(dev, gen, errs):
+    """The radix histogram and rank kernels against their plain
+    versions, and the partition and radix sort built on the rank kernel
+    against torch.sort(stable=True)."""
+    import torch
+    from radixhashjoin_tpu_torch import kernels
+    from radixhashjoin_tpu_torch.ops.partition import (partition_order,
+                                                       radix_sort_order,
+                                                       rank_and_hist_torch)
+    from radixhashjoin_tpu_torch.ops.radix_hist import radix_histogram_torch
+    errs.update({"radix_hist": 0, "rank_hist": 0})
+    rows = {}
+
+    def report(name, label, pairs, kernel_fn, plain_fn, profile=False):
+        err = max(_max_abs_err(g, w) for g, w in pairs)
+        errs[name] = max(errs.get(name, 0), err)
+        if not all(torch.equal(g, w) for g, w in pairs):
+            raise AssertionError(f"{name} {label}: kernel != plain "
+                                 f"(max abs err {err})")
+        row = {"kernel": name, "case": label, "exact": True,
+               "ms": _time_ms(kernel_fn), "plain_ms": _time_ms(plain_fn)}
+        if profile:
+            row["device_profile"] = _profile(kernel_fn, top=6)
+        print(json.dumps(row))
+        return row
+
+    # the shootout's histogram: 2^26 values into 256 bins, the last
+    # 12345 lanes padding
+    n, bins = 1 << 26, 256
+    count = n - 12345
+    vals = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    got = kernels.radix_histogram_cuda(vals, count, bins)
+    want = radix_histogram_torch(vals, count, bins)
+    torch.cuda.synchronize()
+    rows["radix_hist"] = report(
+        "radix_hist", f"n=2^26 count=2^26-12345 bins={bins}",
+        [(got, want)],
+        lambda: kernels.radix_histogram_cuda(vals, count, bins),
+        lambda: radix_histogram_torch(vals, count, bins))
+    del vals
+
+    # rank kernel at the shapes the partition (256 digits + the dead
+    # bin) and the 18-bit radix sort (9-bit digits) give it
+    n = 1 << 24
+    for bins in (257, 513):
+        digits = torch.randint(0, bins + 1, (n,), generator=gen,
+                               device=dev, dtype=torch.int32)
+        got = kernels.rank_hist_cuda(digits, bins)
+        want = rank_and_hist_torch(digits, bins)
+        torch.cuda.synchronize()
+        row = report("rank_hist", f"n=2^24 digits in [0, {bins}]",
+                     list(zip(got, want)),
+                     lambda: kernels.rank_hist_cuda(digits, bins),
+                     lambda: rank_and_hist_torch(digits, bins))
+        rows.setdefault("rank_hist", row)
+
+    keys = torch.randint(0, 1 << 18, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    digits = keys & 255
+    want = torch.sort(digits, stable=True).indices.to(torch.int32)
+    report("partition_order", "n=2^24 256 digits vs torch.sort(stable)",
+           [(partition_order(digits, 256)[0], want)],
+           lambda: partition_order(digits, 256),
+           lambda: torch.sort(digits, stable=True), profile=True)
+    want = torch.sort(keys, stable=True).indices.to(torch.int32)
+    report("radix_sort_order",
+           "n=2^24 18-bit keys, 9-bit digits vs torch.sort(stable)",
+           [(radix_sort_order(keys, 18, 9), want)],
+           lambda: radix_sort_order(keys, 18, 9),
+           lambda: torch.sort(keys, stable=True), profile=True)
+    return rows
 
 
 # ---- phase 3: the CLI on a contest-shaped synthetic catalog ----
@@ -268,7 +355,8 @@ def phase_cli(dev):
         launches = dict(kernels.LAUNCHES)
         if out.getvalue().splitlines() != want:
             raise AssertionError("in-process lines differ from the oracle's")
-        if dev.type == "cuda" and min(launches.values()) == 0:
+        # the wave's build and lookup; the radix kernels are not on it
+        if dev.type == "cuda" and min(launches[k] for k in WAVE_KERNELS) == 0:
             raise AssertionError(f"main path skipped a kernel: {launches}")
         counters = dict(engine.batch_executor.counters)
         batches = parse_work_stream(work)
@@ -288,6 +376,140 @@ def phase_cli(dev):
         "oracle_s": oracle_s, "counters": counters,
         "launches": launches, "device_profile": profile}))
     return launches
+
+
+# ---- phase 3b: the per-query path (--no-batch) on the same catalog ----
+
+def make_fallback_queries(rng, rels, batch_engine, n_queries=20):
+    """Queries the wave-batched path does not plan, in turn: cycles over
+    three relations, same-slot predicates without cross joins, and
+    filter-only queries. Each is kept only if the batch engine refuses
+    it (NotImplementedError), so every one needs the per-query path."""
+    from radixhashjoin_tpu_torch.workload import parse_query
+
+    def col_of(slots, s):
+        return int(rng.integers(0, len(rels[slots[s]])))
+
+    def filt(slots):
+        s = int(rng.integers(0, len(slots)))
+        c = col_of(slots, s)
+        col = rels[slots[s]][c]
+        op = str(rng.choice(["<", ">", "="], p=[0.45, 0.45, 0.1]))
+        return f"{s}.{c}{op}{int(col[int(rng.integers(0, len(col)))])}"
+
+    def projs(slots):
+        return " ".join(f"{int(s)}.{col_of(slots, int(s))}" for s in
+                        rng.integers(0, len(slots), int(rng.integers(1, 4))))
+
+    lines, kinds, tries = [], [], 0
+    while len(lines) < n_queries:
+        tries += 1
+        if tries > 50 * n_queries:
+            raise AssertionError("could not generate fallback queries")
+        kind = ("cycle", "same_slot", "no_join")[len(lines) % 3]
+        if kind == "cycle":
+            slots = [int(x) for x in rng.choice(len(rels), 3, replace=False)]
+            preds = [f"0.{col_of(slots, 0)}=1.{col_of(slots, 1)}",
+                     f"1.{col_of(slots, 1)}=2.{col_of(slots, 2)}",
+                     f"2.{col_of(slots, 2)}=0.{col_of(slots, 0)}"]
+        elif kind == "same_slot":
+            slots = [int(x) for x in rng.integers(0, len(rels),
+                                                  int(rng.integers(1, 3)))]
+            a, b = rng.choice(len(rels[slots[0]]), 2, replace=False)
+            preds = [f"0.{int(a)}=0.{int(b)}"]
+        else:
+            slots = [int(x) for x in rng.integers(0, len(rels),
+                                                  int(rng.integers(1, 3)))]
+            preds = []
+        preds += [filt(slots) for _ in range(int(rng.integers(
+            0 if preds else 1, 3)))]
+        line = f"{' '.join(map(str, slots))}|{'&'.join(preds)}|" \
+               f"{projs(slots)}"
+        try:
+            batch_engine.run_batch([parse_query(line)])
+        except NotImplementedError:
+            lines.append(line)
+            kinds.append(kind)
+    return lines, kinds
+
+
+def phase_no_batch(dev):
+    """The contest-shaped catalog's 50 tree queries plus ~20 queries the
+    batch path refuses, through `--no-batch` as a subprocess and
+    in-process: every line equals the oracle's, and the tree queries'
+    lines equal the batch path's."""
+    from radixhashjoin_tpu_torch import kernels
+    from radixhashjoin_tpu_torch.config import EngineConfig
+    from radixhashjoin_tpu_torch.models.engine import Engine, main
+    from radixhashjoin_tpu_torch.oracle import run_workload
+    from radixhashjoin_tpu_torch.storage import load_relation, write_relation
+    from radixhashjoin_tpu_torch.workload import parse_work_stream
+
+    rng = np.random.default_rng(2018)            # phase 3's catalog
+    rels = make_contest_catalog(rng)
+    tree = make_tree_queries(rng, rels)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i, cols in enumerate(rels):
+            paths.append(os.path.join(tmp, f"r{i}"))
+            write_relation(paths[-1], cols)
+        loaded = [load_relation(p) for p in paths]
+        batch_engine = Engine(loaded, EngineConfig(), device=dev)
+        extra, kinds = make_fallback_queries(np.random.default_rng(7), rels,
+                                             batch_engine)
+        work = tree + extra[:10] + ["F"] + extra[10:] + ["F"]
+        batches = parse_work_stream(work)
+        t0 = time.perf_counter()
+        want = run_workload(loaded, batches)
+        oracle_s = time.perf_counter() - t0
+        batch_lines = batch_engine.run_workload(parse_work_stream(tree))
+        if batch_lines != want[:len(batch_lines)]:
+            raise AssertionError("batch path differs from the oracle on "
+                                 "the tree queries")
+        stream = "\n".join(paths + ["Done"] + work) + "\n"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "radixhashjoin_tpu_torch", "--device",
+             dev.type, "--no-batch"], input=stream, capture_output=True,
+            text=True, cwd=REPO, timeout=600)
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"--no-batch CLI exit {proc.returncode}:\n"
+                                 f"{proc.stderr[-4000:]}")
+        if proc.stdout.splitlines() != want:
+            raise AssertionError("--no-batch CLI lines differ from the "
+                                 "oracle's")
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        engine = main(io.StringIO(stream), out,
+                      EngineConfig(batch_execution=False), device=dev)
+        first_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        got = out.getvalue().splitlines()
+        if got != want:
+            raise AssertionError("in-process --no-batch lines differ from "
+                                 "the oracle's")
+        if got[:len(batch_lines)] != batch_lines:
+            raise AssertionError("per-query tree lines differ from the "
+                                 "batch path's")
+        counters = dict(engine.executor.counters)
+        warm = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            if engine.run_workload(batches) != want:
+                raise AssertionError("--no-batch warm rerun differs")
+            warm.append(time.perf_counter() - t0)
+    print(json.dumps({
+        "phase": "no_batch_cli", "queries": len(want),
+        "tree_queries": len(batch_lines),
+        "fallback_queries": {k: kinds.count(k) for k in set(kinds)},
+        "null_lines": sum(line.startswith("NULL") for line in want),
+        "lines_equal_oracle": True, "tree_lines_equal_batch_path": True,
+        "cli_subprocess_s": cli_s, "inprocess_first_s": first_s,
+        "inprocess_warm_s": warm, "oracle_s": oracle_s,
+        "counters": counters, "launches": launches}))
 
 
 # ---- phase 4: data scale ----
@@ -310,7 +532,7 @@ def _scale_run(name, rels, q, expected, n_tuples, dev):
     if eng.batch_executor.counters["ftree_queries"] != 1:
         raise AssertionError(f"{name}: not on the factorized path")
     grew = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-    if dev.type == "cuda" and min(grew.values()) == 0:
+    if dev.type == "cuda" and min(grew[k] for k in WAVE_KERNELS) == 0:
         raise AssertionError(f"{name}: a kernel was not launched: {grew}")
     warm = []
     for _ in range(3):
@@ -419,7 +641,108 @@ def phase_scale(dev, zipf_rows=ZIPF_ROWS, star_rows=STAR_ROWS,
     line["load_s"] = load_s
     lines.append(line)
     print(json.dumps(line))
+    # the same star query through the per-query executor
+    line = _per_query_run("star_per_query", [fact] + dims, q,
+                          [" ".join(map(str, exp))], star_rows + 2 * n_keys,
+                          dev)
+    line["batch_path_warm_s"] = lines[-1]["warm_query_s"]
+    lines.append(line)
+    print(json.dumps(line))
+    del fact, dims, k1, k2, live
+
+    line = _triangle(rng, dev, TRIANGLE_ROWS)
+    lines.append(line)
+    print(json.dumps(line))
     return lines
+
+
+def _per_query_run(name, rels, q, expected, n_tuples, dev):
+    """One query through Engine(batch_execution=False): first run, three
+    warm runs, a profiled run; exact against `expected`."""
+    import torch
+    from radixhashjoin_tpu_torch import kernels
+    from radixhashjoin_tpu_torch.config import EngineConfig
+    from radixhashjoin_tpu_torch.models.engine import Engine
+
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(rels, EngineConfig(batch_execution=False), device=dev)
+    t0 = time.perf_counter()
+    got = eng.run_workload([[q]])
+    first_s = time.perf_counter() - t0
+    if got != expected:
+        raise AssertionError(f"{name}: {got} != oracle {expected}")
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        if eng.run_workload([[q]]) != expected:
+            raise AssertionError(f"{name}: warm rerun differs")
+        warm.append(time.perf_counter() - t0)   # ends in a readback
+    reads = eng.executor.counters["readbacks"] // 4
+    return {"phase": "scale", "cell": name, "join_input_tuples": n_tuples,
+            "first_run_s": first_s, "warm_query_s": warm,
+            "tuples_per_s": n_tuples / float(np.median(warm)),
+            "readbacks_per_query": reads,
+            "launches": {k: kernels.LAUNCHES[k] - before[k]
+                         for k in before},
+            "exact": True,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "device_profile": _profile(lambda: eng.run_workload([[q]]))}
+
+
+def _triangle(rng, dev, n):
+    """A cyclic triangle R(a, b) ⋈ S(b, c) ⋈ T(c, a) of n-row relations,
+    which the wave-batched path cannot plan: n planted triangles over
+    values below n, half of T's rows broken so that the closing
+    predicate filters, against the port's oracle."""
+    from radixhashjoin_tpu_torch.oracle import OracleExecutor
+    from radixhashjoin_tpu_torch.storage import Relation
+    from radixhashjoin_tpu_torch.workload import parse_query
+
+    t0 = time.perf_counter()
+    a, b, c = (rng.integers(0, n, n).astype(np.uint64) for _ in range(3))
+    pay = rng.integers(0, 1000, n).astype(np.uint64)
+    ps, pt = rng.permutation(n), rng.permutation(n)
+    ta = a.copy()
+    broken = rng.random(n) < 0.5
+    ta[broken] = rng.integers(0, n, int(broken.sum())).astype(np.uint64)
+    rels = [Relation([a, b, pay]), Relation([b[ps], c[ps], pay[ps]]),
+            Relation([c[pt], ta[pt]])]
+    q = parse_query("0 1 2|0.1=1.0&1.1=2.0&2.1=0.0&0.2<900|0.2 1.2 2.0")
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = OracleExecutor(rels).execute(q)
+    oracle_s = time.perf_counter() - t0
+    if want is None or min(want) == 0:
+        raise AssertionError(f"triangle oracle gave a degenerate {want}")
+    line = _per_query_run("triangle_per_query", rels, q,
+                          [" ".join(map(str, want))], 3 * n, dev)
+    line.update(load_s=load_s, oracle_s=oracle_s)
+    return line
+
+
+# ---- phase 5: the kernel shootout ----
+
+def phase_shootout(dev, log_rows=SHOOTOUT_LOG_ROWS):
+    """`bench_kernels --log-rows 26` in-process, its lines printed; the
+    launch counts of this run show the radix kernels' path."""
+    from radixhashjoin_tpu_torch import bench_kernels, kernels
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    rc = bench_kernels.main(["--log-rows", str(log_rows), "--device",
+                             dev.type], out)
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    print(out.getvalue(), end="")
+    if rc != 0:
+        raise AssertionError(f"bench_kernels exited {rc}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"the shootout skipped a kernel: {launches}")
+    print(json.dumps({"phase": "shootout", "log_rows": log_rows,
+                      "seconds": seconds, "launches": launches}))
+    return launches
 
 
 def main() -> int:
@@ -439,27 +762,34 @@ def main() -> int:
                       "python": sys.version.split()[0]}))
     b = kernels.build()
     print(json.dumps({"phase": "build", "seconds": b["seconds"],
-                      "library": os.path.relpath(b["path"], REPO),
+                      "libraries": {k: os.path.relpath(p, REPO)
+                                    for k, p in b["paths"].items()},
                       "ptxas": [ln.strip() for ln in b["log"].splitlines()
                                 if "Used" in ln or "spill" in ln]}))
     timed, errs = phase_kernels(dev)
     launches = phase_cli(dev)
+    phase_no_batch(dev)
     phase_scale(dev)
+    launches_radix = phase_shootout(dev)
     for pkg in ("jax", "radixhashjoin_tpu"):
         if pkg in sys.modules:
             raise AssertionError(f"the port's run imported {pkg}")
-    src = "radixhashjoin_tpu_torch/csrc/tables.cu"
+    tables = "radixhashjoin_tpu_torch/csrc/tables.cu"
+    radix = "radixhashjoin_tpu_torch/csrc/radix.cu"
+    rows = [
+        ("weighted_bincount_cuda", "bincount", tables,
+         "radixhashjoin_tpu/ops/tables.py:283", launches),
+        ("table_gather_cuda", "gather", tables,
+         "radixhashjoin_tpu/ops/tables.py:564", launches),
+        ("radix_histogram_cuda", "radix_hist", radix,
+         "radixhashjoin_tpu/ops/pallas_radix.py:55", launches_radix),
+        ("rank_hist_cuda", "rank_hist", radix,
+         "radixhashjoin_tpu/ops/pallas_partition.py:92", launches_radix)]
     print(json.dumps({"kernels": [
-        {"name": "weighted_bincount_cuda", "route": "cuda", "source": src,
-         "replaces": "radixhashjoin_tpu/ops/tables.py:283",
-         "launches": launches["bincount"],
-         "max_abs_err": errs["bincount"], "ms": timed["bincount"]["ms"],
-         "plain_ms": timed["bincount"]["plain_ms"]},
-        {"name": "table_gather_cuda", "route": "cuda", "source": src,
-         "replaces": "radixhashjoin_tpu/ops/tables.py:564",
-         "launches": launches["gather"],
-         "max_abs_err": errs["gather"], "ms": timed["gather"]["ms"],
-         "plain_ms": timed["gather"]["plain_ms"]}]}))
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": counts[key], "max_abs_err": errs[key],
+         "ms": timed[key]["ms"], "plain_ms": timed[key]["plain_ms"]}
+        for name, key, src, rep, counts in rows]}))
     print(_nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

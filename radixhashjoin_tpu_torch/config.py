@@ -30,13 +30,18 @@ class EngineConfig:
     # --- execution backend ---
     # "auto": the dense direct-address path when the catalog's value
     # domain fits max_dense_domain (int32 entries: 2**24 -> 64 MB table
-    # on the device); "dense" forces it.
+    # on the device); "dense" forces it. The per-query executor
+    # (batch_execution=False) always runs the sort join, as the
+    # reference's does, and takes any of the three.
     join_backend: str = "auto"
     max_dense_domain: int = 1 << 24
 
+    # True: one factorized wave per batch (models/batch.py); False: one
+    # query at a time through the per-query executor (models/executor.py)
+    batch_execution: bool = True
+
     # --- settings that need unported code (non-defaults raise) ---
     force_oracle: bool = False
-    batch_execution: bool = True
     fuse_stages: bool = True
     factorized: bool = True
     # every query of a batch runs in ONE level-batched wave (one round)
@@ -58,14 +63,16 @@ _UNPORTED = {
     "enable_join_reordering": ((False,), "the join-order planner (item 8)"),
     "force_oracle": ((False,), "the oracle route (the port has no quiet "
                                "route to the oracle)"),
-    "batch_execution": ((True,), "the per-query executor (item 7)"),
-    "factorized": ((True,), "the materialized fallback (item 7)"),
-    "fuse_stages": ((True,), "the per-op execution path (item 7)"),
+    "factorized": ((True,),
+                   "the wave-batched materialized fallback (item 7b)"),
+    "fuse_stages": ((True,), "the per-op execution path (item 7b)"),
     "ftree_wave": ((True,), "per-query ftree ops, kept out until an A/B "
                             "on the H100 decides them (item 11)"),
     "stage_group": ((None,), "rounds of grouped queries, kept out until "
                              "an A/B on the H100 decides them (item 11)"),
-    "join_backend": (("auto", "dense"), "the sort join backend (item 7)"),
+    "join_backend": (("auto", "dense"),
+                     "the wave-batched sort join backend (item 7b; the "
+                     "per-query executor, batch_execution=False, runs it)"),
     "ftree_window_sort": (("auto", "off"),
                           "the huge-node sorted windows (item 6)"),
     "profile": ((False,), "the per-operator profiler"),
@@ -76,6 +83,8 @@ def check_config(config: EngineConfig) -> None:
     """Raise NotImplementedError for a config that needs unported code."""
     for field, (allowed, needs) in _UNPORTED.items():
         value = getattr(config, field)
+        if field == "join_backend" and not config.batch_execution:
+            allowed = allowed + ("sort",)
         if value not in allowed:
             raise NotImplementedError(
                 f"EngineConfig({field}={value!r}) needs {needs}, which is "

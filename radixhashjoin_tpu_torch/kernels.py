@@ -1,18 +1,23 @@
-"""Build and bind the hand-written Hopper kernels (csrc/tables.cu).
+"""Build and bind the hand-written Hopper kernels (csrc/*.cu).
 
-The source compiles with nvcc into a shared library with a plain C
-interface (no PyTorch headers, so the build takes seconds), at first
-use, into `build/` beside this file. The library's name carries a hash
-of the source, so an edited source never loads a stale build. Nothing
-here runs at import time: the CPU tests import this module on machines
-with no nvcc and no card.
+Each source compiles with nvcc into a shared library of its own with a
+plain C interface (no PyTorch headers, so a build takes seconds), at
+first use, into `build/` beside this file; the nvcc processes of all
+sources that need building start together. A library's name carries a
+hash of its own source and the flags, so an edited source never loads a
+stale build. Nothing here runs at import time: the CPU tests import this
+module on machines with no nvcc and no card.
+
+    csrc/tables.cu  rhj_weighted_bincount, rhj_table_gather
+    csrc/radix.cu   rhj_radix_histogram, rhj_rank_hist
 
 A missing nvcc, a failed build, a refused launch or a wrong operand
-raises. There is no fallback: ops/tables.py sends only CUDA tensors here,
-and a CUDA tensor either runs the kernel or fails.
+raises. There is no fallback: the ops modules send only CUDA tensors
+here, and a CUDA tensor either runs the kernel or fails.
 
-`LAUNCHES` counts kernel launches per wrapper ("bincount", "gather"),
-so a run can show that its main path went through these kernels.
+`LAUNCHES` counts kernel launches per wrapper ("bincount", "gather",
+"radix_hist", "rank_hist"), so a run can show that a path went through
+these kernels.
 """
 
 from __future__ import annotations
@@ -23,19 +28,26 @@ import os
 import shutil
 import subprocess
 import time
+from typing import Dict, Tuple, Union
 
 import torch
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "tables.cu")
+SOURCES = {name: os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
+           for name in ("tables", "radix")}
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"
 
-LAUNCHES = {"bincount": 0, "gather": 0}
+# mirror kHistMaxBins / kRankMaxBins of csrc/radix.cu (shared memory)
+RADIX_HIST_MAX_BINS = 32 * 1024
+RANK_HIST_MAX_BINS = 48 * 1024 // 4 - 2048 - 1
+RANK_BLOCK = 2048
 
-_lib = None
+LAUNCHES = {"bincount": 0, "gather": 0, "radix_hist": 0, "rank_hist": 0}
+
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def find_nvcc() -> str:
@@ -53,48 +65,72 @@ def find_nvcc() -> str:
             return c
     raise RuntimeError(
         f"nvcc not found (looked in $CUDA_HOME/bin, PATH, {NVCC_FALLBACK}):"
-        f" the CUDA kernels of csrc/tables.cu cannot be built")
+        f" the CUDA kernels of csrc/ cannot be built")
 
 
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
+def library_path(name: str) -> str:
+    """Where the library of SOURCES[name] lives; the name hashes that
+    source and the flags."""
+    with open(SOURCES[name], "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libtables_{digest.hexdigest()[:12]}.so")
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 
 def build() -> dict:
-    """Compile csrc/tables.cu unless this source's library exists.
-    Returns {"path", "seconds", "log"}; "seconds" is 0.0 when the build
-    was already there. Raises on any failure."""
-    path = library_path()
-    if os.path.exists(path):
-        return {"path": path, "seconds": 0.0, "log": ""}
+    """Compile every source whose library does not exist yet, one nvcc
+    per source, all started together. Returns {"paths": {name: path},
+    "seconds": wall time of the builds (0.0 when all existed), "log"}.
+    Raises on any failure."""
+    paths = {name: library_path(name) for name in SOURCES}
+    missing = [name for name, p in paths.items() if not os.path.exists(p)]
+    if not missing:
+        return {"paths": paths, "seconds": 0.0, "log": ""}
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
+    procs = {}
+    for name in missing:
+        tmp = f"{paths[name]}.{os.getpid()}.tmp"
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, SOURCES[name]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        logs.append(f"[{name}.cu]\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (exit {proc.returncode})")
+        else:
+            os.replace(tmp, paths[name])   # atomic: never a half library
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
-    os.replace(tmp, path)       # atomic: a concurrent build never sees half
-    return {"path": path, "seconds": seconds, "log": log}
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{log}")
+    return {"paths": paths, "seconds": seconds, "log": log}
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build()["path"])
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+def _bind(name: str, lib: ctypes.CDLL) -> None:
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if name == "tables":
         lib.rhj_weighted_bincount.argtypes = [ptr, ptr, i64, ptr, i32, i32,
                                               ptr]
         lib.rhj_weighted_bincount.restype = i32
         lib.rhj_table_gather.argtypes = [ptr, i32, ptr, i64, ptr, i32, ptr]
         lib.rhj_table_gather.restype = i32
-        _lib = lib
-    return _lib
+    else:
+        lib.rhj_radix_histogram.argtypes = [ptr, i64, ptr, ptr, i32, i32,
+                                            ptr]
+        lib.rhj_radix_histogram.restype = i32
+        lib.rhj_rank_hist.argtypes = [ptr, i64, i32, ptr, ptr, ptr]
+        lib.rhj_rank_hist.restype = i32
+
+
+def _load(name: str) -> ctypes.CDLL:
+    if name not in _libs:
+        lib = ctypes.CDLL(build()["paths"][name])
+        _bind(name, lib)
+        _libs[name] = lib
+    return _libs[name]
 
 
 def _check(name: str, t: torch.Tensor) -> None:
@@ -138,7 +174,7 @@ def weighted_bincount_cuda(idxs: torch.Tensor, weights: torch.Tensor,
     n = idxs.shape[0]
     if n == 0 or n_bins == 0:
         return out
-    lib = _load()
+    lib = _load("tables")
     sms, stream = _launch_env(idxs)
     with torch.cuda.device(idxs.device):
         err = lib.rhj_weighted_bincount(idxs.data_ptr(), weights.data_ptr(),
@@ -163,7 +199,7 @@ def table_gather_cuda(table: torch.Tensor, keys: torch.Tensor
     if n == 0 or n_bins == 0:
         return torch.zeros(n, dtype=torch.int32, device=keys.device)
     out = torch.empty(n, dtype=torch.int32, device=keys.device)
-    lib = _load()
+    lib = _load("tables")
     sms, stream = _launch_env(keys)
     with torch.cuda.device(keys.device):
         err = lib.rhj_table_gather(table.data_ptr(), n_bins, keys.data_ptr(),
@@ -171,3 +207,68 @@ def table_gather_cuda(table: torch.Tensor, keys: torch.Tensor
     _raise_on(err, "rhj_table_gather")
     LAUNCHES["gather"] += 1
     return out
+
+
+def radix_histogram_cuda(vals: torch.Tensor,
+                         count: Union[int, torch.Tensor],
+                         n_bins: int) -> torch.Tensor:
+    """int32[n_bins]: histogram of vals[:count] & (n_bins - 1). `count` is
+    an int or a 0-d/1-element integer tensor on the same card (read on the
+    device: no host sync). n_bins: a power of two, at most
+    RADIX_HIST_MAX_BINS."""
+    _check("vals", vals)
+    n_bins = int(n_bins)
+    if (n_bins < 1 or n_bins & (n_bins - 1)
+            or n_bins > RADIX_HIST_MAX_BINS):
+        raise ValueError(f"n_bins must be a power of two <= "
+                         f"{RADIX_HIST_MAX_BINS}, got {n_bins}")
+    out = torch.zeros(n_bins, dtype=torch.int32, device=vals.device)
+    n = vals.shape[0]
+    if n == 0:
+        return out
+    if isinstance(count, torch.Tensor):
+        if count.device != vals.device or count.numel() != 1:
+            raise ValueError("count: expected one value on vals' device")
+        count_dev = count.reshape(1).to(torch.int32).contiguous()
+    else:
+        c = max(min(int(count), n), 0)
+        count_dev = torch.full((1,), c, dtype=torch.int32,
+                               device=vals.device)
+    lib = _load("radix")
+    sms, stream = _launch_env(vals)
+    with torch.cuda.device(vals.device):
+        err = lib.rhj_radix_histogram(vals.data_ptr(), n,
+                                      count_dev.data_ptr(), out.data_ptr(),
+                                      n_bins, sms, stream)
+    _raise_on(err, "rhj_radix_histogram")
+    LAUNCHES["radix_hist"] += 1
+    return out
+
+
+def rank_hist_cuda(digits: torch.Tensor, n_bins: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ranks int32[n], hists int32[ceil(n / 2048), n_bins]): each digit's
+    stable rank among the equal digits of its 2048-element block, and the
+    blocks' histograms of digits < n_bins. Digits lie in [0, n_bins]; one
+    outside gets rank 0 and is counted nowhere."""
+    _check("digits", digits)
+    n_bins = int(n_bins)
+    if not 1 <= n_bins <= RANK_HIST_MAX_BINS:
+        raise ValueError(f"n_bins must be in [1, {RANK_HIST_MAX_BINS}] "
+                         f"(one warp's counters in shared memory), got "
+                         f"{n_bins}")
+    n = digits.shape[0]
+    n_blocks = -(-n // RANK_BLOCK)
+    ranks = torch.empty(n, dtype=torch.int32, device=digits.device)
+    hists = torch.empty((n_blocks, n_bins), dtype=torch.int32,
+                        device=digits.device)
+    if n == 0:
+        return ranks, hists
+    lib = _load("radix")
+    _sms, stream = _launch_env(digits)
+    with torch.cuda.device(digits.device):
+        err = lib.rhj_rank_hist(digits.data_ptr(), n, n_bins,
+                                ranks.data_ptr(), hists.data_ptr(), stream)
+    _raise_on(err, "rhj_rank_hist")
+    LAUNCHES["rank_hist"] += 1
+    return ranks, hists

@@ -12,8 +12,9 @@ device-to-host copy and combines the exact u64 sums on the host.
 Ported: the factorized path only. A query that does not factorize (a
 cycle the planner cannot rewrite, over-cap multiplicities, no joins)
 and a catalog whose domain exceeds max_dense_domain need the
-materialized fallback, which is not ported yet: they raise
-NotImplementedError. There is no quiet route to the oracle or the CPU.
+wave-batched materialized fallback, which is not ported yet: they raise
+NotImplementedError (the per-query executor, batch_execution=False,
+answers them). There is no quiet route to the oracle or the CPU.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from .device_catalog import DeviceCatalog
 _UNPLANNED = object()
 
 _ROADMAP_FALLBACK = ("the materialized fallback is not ported yet "
-                     "(ROADMAP.md, 'Modules to port' item 7)")
+                     "(ROADMAP.md, 'Modules to port' item 7b)")
 
 
 class BatchExecutor:

@@ -53,6 +53,7 @@ class DeviceCatalog:
         self._edge_bincounts: Dict[tuple, torch.Tensor] = {}
         self._max_mult: Dict[tuple, int] = {}
         self._bincounts: Dict[tuple, torch.Tensor] = {}
+        self._iota: Dict[int, torch.Tensor] = {}
         self._domain: Optional[int] = None
         # order-preserving global dictionary (only if any column is
         # wide); None => identity encoding (codes are the values)
@@ -245,6 +246,14 @@ class DeviceCatalog:
             t = np.bincount(codes, minlength=self.domain).astype(np.int32)
             self._bincounts[key] = self._put(t)
         return self._bincounts[key]
+
+    def iota(self, size: int) -> torch.Tensor:
+        """Cached int32 arange(size) on the device: the per-query
+        executor's identity rowid set of a pristine slot."""
+        if size not in self._iota:
+            self._iota[size] = torch.arange(size, dtype=torch.int32,
+                                            device=self.device)
+        return self._iota[size]
 
     def bucket(self, n: int) -> int:
         return bucket_size(n, self.config.min_pad, self.config.pad_base)

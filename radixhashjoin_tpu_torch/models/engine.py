@@ -1,9 +1,16 @@
-"""Engine facade: catalog + batch executor + workload runner (counterpart:
+"""Engine facade: catalog + executors + workload runner (counterpart:
 radixhashjoin_tpu/models/engine.py:26-157).
 
-Relations load once (storage.py), every query batch runs on the device
-the caller names, and results print in input order with the reference
-binary's stdin/stdout contract.
+Relations load once (storage.py), every query runs on the device the
+caller names, and results print in input order with the reference
+binary's stdin/stdout contract. Two executors share one DeviceCatalog:
+
+* batch_execution=True (the default): the wave-batched BatchExecutor,
+  one factorized wave per batch (models/batch.py);
+* batch_execution=False: the per-query TorchExecutor
+  (models/executor.py), which answers every query shape with the
+  materializing sort join. Its catalog is built directly, so it also
+  serves catalogs whose domain exceeds max_dense_domain.
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ from ..oracle import format_result
 from ..storage import Relation, load_relation
 from ..workload import Query, parse_init_stream, parse_work_stream
 from .batch import BatchExecutor
+from .device_catalog import DeviceCatalog
+from .executor import TorchExecutor
 
 
 class Engine:
@@ -29,8 +38,15 @@ class Engine:
         self.relations = list(relations)
         self.config = config
         self.device = torch.device(device)
-        self.batch_executor = BatchExecutor(self.relations, config,
-                                            device=self.device)
+        if config.batch_execution:
+            self.batch_executor = BatchExecutor(self.relations, config,
+                                                device=self.device)
+            catalog = self.batch_executor.catalog
+        else:
+            self.batch_executor = None
+            catalog = DeviceCatalog(self.relations, config,
+                                    device=self.device)
+        self.executor = TorchExecutor(self.relations, catalog=catalog)
 
     @classmethod
     def from_paths(cls, paths: Sequence[str],
@@ -38,10 +54,17 @@ class Engine:
                    device: torch.device) -> "Engine":
         return cls([load_relation(p) for p in paths], config, device=device)
 
+    def execute(self, q: Query) -> Optional[List[int]]:
+        """One query through the per-query executor: projection sums, or
+        None for a NULL line."""
+        return self.executor.execute(q)
+
     def run_batch_raw(self, batch: Sequence[Query]
                       ) -> List[Optional[List[int]]]:
         """One query batch on the device: per-query sums (None = NULL
         line), unformatted."""
+        if self.batch_executor is None:
+            return [self.execute(q) for q in batch]
         return self.batch_executor.run_batch(list(batch))
 
     def run_batch(self, batch: Sequence[Query]) -> List[str]:
@@ -85,7 +108,7 @@ def main(stdin: TextIO = None, stdout: TextIO = None,
     """stdin-protocol entry point, contract-identical to the reference
     binary: relation paths until `Done`, then query batches
     (`F`-terminated), then one result line per query in input order.
-    Returns the engine (its executor's counters describe the run)."""
+    Returns the engine (its executors' counters describe the run)."""
     dev = resolve_device(device)
     stdin = stdin or sys.stdin
     stdout = stdout or sys.stdout

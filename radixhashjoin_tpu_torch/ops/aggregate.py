@@ -1,0 +1,26 @@
+"""SUM projection over the per-query executor's final rows (counterpart:
+radixhashjoin_tpu/ops/aggregate.py:38 sum_column_over_rows).
+
+The reference splits every value into 16-bit limbs because TPU lanes
+are 32-bit (aggregate.py:19-28). The port folds in int64, as the
+factorized path does (utils/limbs.py): planes are < 2**31 and a single
+query's rows are < 2**31, so the int64 sum is exact; the host reads it
+back as the u64 it is, and utils/limbs.combine_planes applies the plane
+shifts mod 2**64.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..utils.limbs import U64_MASK
+from .filter import gather_clamped
+
+
+def sum_column_over_rows(col: torch.Tensor, rows: torch.Tensor, count
+                         ) -> int:
+    """Exact u64 sum of col[rows[:count]] (device reduce, one readback)."""
+    n = rows.shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=rows.device)
+    vals = torch.where(idx < count, gather_clamped(col, rows), 0)
+    return int(vals.sum(dtype=torch.int64)) & U64_MASK

@@ -1,0 +1,147 @@
+"""Equi-join as sort + scans + expansion (counterpart:
+radixhashjoin_tpu/ops/join.py:30-139).
+
+The per-query executor's join (models/executor.py): one stable sort of
+the combined [right, left] values gives every left value its first match
+in the sorted right side and its match count; the host reads the exact
+pair total back, picks a padded output size, and `expand_pairs`
+materializes (left index, right index) pairs at that size.
+
+Padding sentinels: left values -1 (match nothing, all data >= 0), right
+values INT32_MAX (the catalog keeps data <= INT32_MAX - 1).
+
+The sorts are `torch.sort(..., stable=True)`: the reference's
+`jnp.argsort(stable=True)` is XLA's comparison sort outside any Pallas
+kernel, and PyTorch's CUDA sort is not stable by default (then `order`
+and `lo` differ on ties). Scatters that may drop lanes aim dropped
+lanes at a spare slot past the end, since a CUDA scatter with an
+out-of-range index device-asserts. Where the reference takes a running
+max over sorted data, the port binary-searches the sorted data for the
+same values: torch.cummax runs a 1-D tensor as one block on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+RIGHT_SENTINEL = 2**31 - 1
+_INT32_MAX = 2**31 - 1
+
+
+class JoinCapacityError(RuntimeError):
+    """A single join's output exceeds 2**31 - 1 pairs (the int32 offset
+    space of the reference, kept in the port). The executor raises this
+    diagnostic instead of overflowing."""
+
+
+def _total_or_overflow(cum64: torch.Tensor) -> torch.Tensor:
+    """The pair total as a 0-d int32, or -1 above 2**31 - 1. The prefix
+    sums run in int64 here (torch.cumsum promotes), so the overflow test
+    is on the true total: the reference detects the same condition as
+    its int32 prefix sums wrapping negative."""
+    last = cum64[-1]
+    return torch.where(last > _INT32_MAX, -1, last).to(torch.int32)
+
+
+def _counts_to_cum(counts: torch.Tensor):
+    """(offsets, cum, total) of int32 per-left counts; offsets and cum
+    are int32, and wrap mod 2**32 past 2**31 - 1 exactly as the
+    reference's int32 scans do (only `total` is read then)."""
+    cum64 = torch.cumsum(counts, 0, dtype=torch.int64)
+    return ((cum64 - counts).to(torch.int32), cum64.to(torch.int32),
+            _total_or_overflow(cum64))
+
+
+def _scatter_drop(n: int, dest: torch.Tensor, src: torch.Tensor
+                  ) -> torch.Tensor:
+    """int32[n]: out[dest[i]] = src[i] for dest[i] in [0, n), else
+    dropped into a spare slot past the end (the reference's
+    `.at[dest].set(src, mode="drop")` with unique live destinations)."""
+    dest = torch.where((dest >= 0) & (dest < n), dest, n)
+    out = torch.zeros(n + 1, dtype=torch.int32, device=src.device)
+    out.index_copy_(0, dest.long(), src)
+    return out[:n]
+
+
+def probe_count(lvals: torch.Tensor, lcount, rvals: torch.Tensor, rcount):
+    """Count matches per left element.
+
+    ONE stable sort of the combined [right, left] value vector + O(n)
+    scans: within a tie run the stable sort places rights (lower input
+    index) before lefts, so an inclusive right-count scan read at a
+    left's position gives lo + matches directly.
+
+    Returns (order, lo, offsets, cum, total):
+      order   — int32[R] stable argsort of the (sentinel-masked) right values
+      lo      — int32[L] first match position of each left value in sorted right
+      offsets — int32[L] exclusive cumsum of per-left match counts
+      cum     — int32[L] inclusive cumsum (cum[-1] == total)
+      total   — 0-d int32: exact number of output pairs, or -1 if the join
+                exceeds 2**31 - 1 pairs (callers raise JoinCapacityError)
+    """
+    L, R = lvals.shape[0], rvals.shape[0]
+    dev = lvals.device
+    li = torch.arange(L, dtype=torch.int32, device=dev)
+    ri = torch.arange(R, dtype=torch.int32, device=dev)
+    lv = torch.where(li < lcount, lvals, -1)
+    rv = torch.where(ri < rcount, rvals, RIGHT_SENTINEL)
+    s, ord_all = torch.sort(torch.cat([rv, lv]), stable=True)
+    ord_all = ord_all.to(torch.int32)
+    isr = (ord_all < R).to(torch.int32)
+    rr = torch.cumsum(isr, 0, dtype=torch.int32)   # rights at positions <= i
+    e = rr - isr                                   # rights strictly before i
+    # start of each equal-value run: the first position of s[i] in the
+    # sorted s (the reference's running max over run-start flags)
+    run_start = torch.searchsorted(s, s)
+    lo_at = e.index_select(0, run_start)          # rights before the run
+    cnt_at = rr - lo_at                            # rights in the run (all
+    #                                                precede its lefts)
+    # scatter back to original operand order; `order` writes in sorted
+    # order (e rises along the rights), the rest go to the spare slot
+    ldest = torch.where(isr == 0, ord_all - R, L)
+    lo = _scatter_drop(L, ldest, lo_at)
+    counts = _scatter_drop(L, ldest, cnt_at)
+    order = _scatter_drop(R, torch.where(isr == 1, e, R), ord_all)
+    offsets, cum, total = _counts_to_cum(counts)
+    return order, lo, offsets, cum, total
+
+
+def expand_pairs(order: torch.Tensor, lo: torch.Tensor,
+                 offsets: torch.Tensor, cum: torch.Tensor, out_size: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Materialize pair k in [0, out_size): (left index, right index).
+
+    Lanes past the true total produce clipped garbage — callers mask by
+    the live count from probe_count. Ownership (which left element
+    produces output k): the reference scatter-maxes each left index with
+    matches at its first output position and fills the runs with a
+    running max. The same owner is the first left whose inclusive prefix
+    sum exceeds k, one binary search in the non-decreasing `cum`; a lane
+    past the total gets the last owner, as the running max gives it."""
+    dev = lo.device
+    k = torch.arange(out_size, dtype=torch.int32, device=dev)
+    last = (cum[-1] - 1).clamp_min(-1)
+    left_of = torch.searchsorted(cum, torch.minimum(k, last), side="right")
+    left_of = left_of.to(torch.int32)
+    within = k - offsets.index_select(0, left_of)
+    rpos = lo.index_select(0, left_of) + within
+    rr = order.index_select(0, rpos.clamp(0, order.shape[0] - 1))
+    return left_of, rr
+
+
+def any_common(avals: torch.Tensor, bvals: torch.Tensor, count
+               ) -> torch.Tensor:
+    """0-d bool: True iff the live prefixes of a and b share any value —
+    the reference's NULL rule for a both-joined step: the join's pair
+    set must be non-empty even though the step only filters rows
+    (Query.cpp:188-191)."""
+    n = avals.shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=avals.device)
+    live = idx < count
+    av = torch.where(live, avals, -1)
+    bs = torch.sort(torch.where(live, bvals, RIGHT_SENTINEL)).values
+    lo = torch.searchsorted(bs, av, side="left")
+    hi = torch.searchsorted(bs, av, side="right")
+    return ((hi > lo) & live).any()

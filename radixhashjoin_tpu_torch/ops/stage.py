@@ -36,7 +36,7 @@ def run_stage(cols, vals, plan, device: torch.device,
                 f"stage op {kind!r} is not ported; the port runs every "
                 f"factorized query in one ftree_wave op and has no "
                 f"materialized fallback yet (ROADMAP.md, 'Modules to port' "
-                f"item 7)")
+                f"item 7b)")
         ci += n_cols
         vi += n_vals
         flags.extend(f)

@@ -1,6 +1,7 @@
 """Card-only tests of the port: the hand-written CUDA kernels against
-their plain PyTorch versions, and the engine on a CUDA device against
-the port's oracle. Marked `cuda`; they skip without a card. They import
+their plain PyTorch versions, the partition and radix sort against
+torch.sort(stable=True), the engine on a CUDA device against the port's
+oracle, and the per-query executor on CUDA against its CPU run. Marked `cuda`; they skip without a card. They import
 nothing of jax or of the JAX package, so they also run where jax is
 absent:
 
@@ -15,6 +16,11 @@ from radixhashjoin_tpu_torch import kernels
 from radixhashjoin_tpu_torch.config import EngineConfig
 from radixhashjoin_tpu_torch.models.engine import Engine
 from radixhashjoin_tpu_torch.oracle import OracleExecutor, format_result
+from radixhashjoin_tpu_torch.ops.partition import (partition_order,
+                                                   radix_sort_order,
+                                                   rank_and_hist_torch)
+from radixhashjoin_tpu_torch.ops.radix_hist import (radix_histogram,
+                                                    radix_histogram_torch)
 from radixhashjoin_tpu_torch.ops.tables import (table_gather_torch,
                                                 weighted_bincount_torch)
 from radixhashjoin_tpu_torch.storage import Relation
@@ -103,4 +109,118 @@ def test_engine_on_cuda_matches_oracle(dev, seed):
     oracle = OracleExecutor(rels)
     assert got == [format_result(oracle.execute(q), len(q.projections))
                    for q in queries]
-    assert all(kernels.LAUNCHES[k] > before[k] for k in before)
+    # the wave's build and lookup (the radix kernels are not on it)
+    assert all(kernels.LAUNCHES[k] > before[k] for k in ("bincount",
+                                                         "gather"))
+
+
+SIZES = [0, 1, 2047, 2048, 2049, 3_000_017]
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("n_bins", [128, 256])
+def test_radix_histogram_kernel_exact(dev, n, n_bins):
+    g = torch.Generator(device=dev).manual_seed(n + n_bins)
+    vals = torch.randint(-2**31, 2**31 - 1, (n,), generator=g, device=dev,
+                         dtype=torch.int32)
+    for count in (n, n // 3, n + 5, -1):
+        before = kernels.LAUNCHES["radix_hist"]
+        got = radix_histogram(vals, count, n_bins)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["radix_hist"] == before + (n > 0)
+        assert torch.equal(got, radix_histogram_torch(vals, count, n_bins))
+        # a device count: read on the card
+        dcount = torch.tensor(count, dtype=torch.int32, device=dev)
+        assert torch.equal(radix_histogram(vals, dcount, n_bins), got)
+    assert int(radix_histogram(vals, n, n_bins).sum()) == n
+
+
+def test_radix_histogram_kernel_wide_and_refused(dev):
+    vals = torch.arange(1 << 20, dtype=torch.int32, device=dev)
+    bins = kernels.RADIX_HIST_MAX_BINS           # dynamic shared memory
+    got = kernels.radix_histogram_cuda(vals, 1 << 20, bins)
+    assert torch.equal(got, radix_histogram_torch(vals, 1 << 20, bins))
+    with pytest.raises(ValueError):
+        kernels.radix_histogram_cuda(vals, 5, 2 * bins)
+    with pytest.raises(ValueError):
+        radix_histogram(vals, 5, 257)
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("n_bins", [128, 256, 257, 513])
+def test_rank_hist_kernel_exact(dev, n, n_bins):
+    g = torch.Generator(device=dev).manual_seed(n * 7 + n_bins)
+    # digits in [0, n_bins]: n_bins is the dead-lane bin, ranked but not
+    # counted; a few out-of-range digits get rank 0 and count nowhere
+    digits = torch.randint(0, n_bins + 1, (n,), generator=g, device=dev,
+                           dtype=torch.int32)
+    if n > 10:
+        digits[:: 997] = -3
+        digits[5:: 1999] = n_bins + 4
+    before = kernels.LAUNCHES["rank_hist"]
+    ranks, hists = kernels.rank_hist_cuda(digits, n_bins)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["rank_hist"] == before + (n > 0)
+    want_r, want_h = rank_and_hist_torch(digits, n_bins)
+    assert hists.shape == (-(-n // 2048), n_bins)
+    assert torch.equal(ranks, want_r)
+    assert torch.equal(hists, want_h)
+
+
+def test_rank_hist_refuses_wide_bins(dev):
+    d = torch.zeros(5, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        kernels.rank_hist_cuda(d, kernels.RANK_HIST_MAX_BINS + 1)
+    ranks, _ = kernels.rank_hist_cuda(d, kernels.RANK_HIST_MAX_BINS)
+    assert ranks.tolist() == [0, 1, 2, 3, 4]
+
+
+@pytest.mark.parametrize("n", [1, 2049, 3_000_017])
+def test_partition_and_radix_sort_match_torch_sort(dev, n):
+    g = torch.Generator(device=dev).manual_seed(n)
+    keys = torch.randint(0, 1 << 18, (n,), generator=g, device=dev,
+                         dtype=torch.int32)
+    want = torch.sort(keys, stable=True).indices.to(torch.int32)
+    assert torch.equal(radix_sort_order(keys, 18, 9), want)
+    digits = keys & 255
+    digits[:: 13] = 256                            # dead lanes sort last
+    order, hist = partition_order(digits, 256)
+    assert torch.equal(order,
+                       torch.sort(digits, stable=True).indices.int())
+    assert torch.equal(hist, torch.bincount(digits, minlength=257).int())
+
+
+def _general_queries(rng, rels, n_queries=10):
+    """Any join graph: cycles, same-slot predicates, repeated slots."""
+    queries = []
+    for _ in range(n_queries):
+        nslots = int(rng.integers(1, 4))
+        slots = [int(rng.integers(0, len(rels))) for _ in range(nslots)]
+        joins = []
+        for _ in range(int(rng.integers(0, 4))):
+            s1, s2 = (int(x) for x in rng.integers(0, nslots, 2))
+            joins.append(JoinPred(s1, int(rng.integers(0, 3)), s2,
+                                  int(rng.integers(0, 3))))
+        filters = [FilterPred(int(rng.integers(0, nslots)),
+                              int(rng.integers(0, 3)),
+                              str(rng.choice(["=", "<", ">"])),
+                              int(rng.integers(0, 70)))
+                   for _ in range(int(rng.integers(0, 3)))]
+        projs = [Projection(int(rng.integers(0, nslots)),
+                            int(rng.integers(0, 3)))
+                 for _ in range(int(rng.integers(1, 4)))]
+        queries.append(Query(slots, joins, filters, projs))
+    return rels, queries
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_per_query_executor_cuda_matches_cpu(dev, seed):
+    rng = np.random.default_rng(300 + seed)
+    rels, _ = _tree_workload(rng)
+    rels, queries = _general_queries(rng, rels)
+    cfg = EngineConfig(batch_execution=False)
+    got = Engine(rels, cfg, device=dev).run_batch(queries)
+    assert got == Engine(rels, cfg, device="cpu").run_batch(queries)
+    oracle = OracleExecutor(rels)
+    assert got == [format_result(oracle.execute(q), len(q.projections))
+                   for q in queries]

@@ -9,7 +9,8 @@ through its own parser from the query's text. Covers random
 tree queries, stars, chains, wiped-component NULLs, every factorizing
 case of tests/test_case3_rewrite.py, and wide u64 values with sums past
 2**40 and 2**64. Also: the CLI as a subprocess, the port's independence
-from jax, and the NotImplementedError surface of unported paths.
+from jax, and the NotImplementedError surface of unported paths (the
+per-query path has its own file, tests/test_torch_executor.py).
 """
 
 import inspect
@@ -243,13 +244,23 @@ def test_huge_node_raises(monkeypatch):
     ("mesh_devices", 2), ("enable_join_reordering", True),
     ("force_oracle", True), ("factorized", False), ("fuse_stages", False),
     ("join_backend", "sort"), ("ftree_window_sort", "on"),
-    ("batch_execution", False), ("ftree_scatter", "mxu"),
-    ("ftree_gather", "xla"), ("max_dense_domain", 512),
-    ("ftree_wave", False), ("stage_group", 3),
+    ("ftree_scatter", "mxu"), ("ftree_gather", "xla"),
+    ("max_dense_domain", 512), ("ftree_wave", False), ("stage_group", 3),
 ])
 def test_unported_config_raises(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port_engine([_u64([1, 2])], EngineConfig(**{field: value}))
+
+
+def test_batch_execution_false_runs():
+    """batch_execution=False is ported: every query goes through the
+    per-query executor (tests/test_torch_executor.py)."""
+    eng = _port_engine([_u64([1, 2, 2])],
+                       EngineConfig(batch_execution=False))
+    assert eng.batch_executor is None
+    q = tworkload.parse_query("0 0|0.0=1.0|0.0")
+    assert eng.run_batch([q]) == ["9"]
+    assert eng.executor.counters["queries"] == 1
 
 
 # ---- CLI and process-level checks ----
@@ -297,8 +308,14 @@ def test_port_never_imports_jax():
         "eng = Engine([r, r], EngineConfig(), device='cpu')\n"
         "q = parse_query('0 1|0.0=1.0|0.0')\n"
         "assert eng.run_batch([q]) == ['9'], eng.run_batch([q])\n"
+        "eng = Engine([r, r], EngineConfig(batch_execution=False), "
+        "device='cpu')\n"
+        "assert eng.run_batch([q]) == ['9'], eng.run_batch([q])\n"
         "import radixhashjoin_tpu_torch.__main__, radixhashjoin_tpu_torch."
         "kernels, radixhashjoin_tpu_torch.oracle\n"
+        "import radixhashjoin_tpu_torch.bench_kernels\n"
+        "import radixhashjoin_tpu_torch.ops.partition\n"
+        "import radixhashjoin_tpu_torch.ops.radix_hist\n"
         "assert 'jax' not in sys.modules\n"
         "assert 'radixhashjoin_tpu' not in sys.modules\n"
         "print('ok')\n")
