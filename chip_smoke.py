@@ -20,16 +20,27 @@ Phases (any failure raises and exits non-zero; nothing is swallowed):
      oracle (oracle.py), and the in-process run must go through the
      build and lookup kernels;
   3b. the same catalog through `--no-batch` (the per-query executor):
-     the 50 tree queries plus 20 queries the batch path refuses
-     (cycles, same-slot predicates, no joins), as a subprocess and
-     in-process; every line equals the oracle's and the tree queries'
-     lines equal the batch path's;
+     the 50 tree queries plus 20 queries the factorized wave does not
+     plan (cycles, same-slot predicates, no joins), in two batches, as a
+     subprocess and in-process; every line equals the oracle's and the
+     tree queries' lines equal the batch path's;
+  3c. the same 70 queries through the default CLI (the batch path): as
+     a subprocess and in-process, lines equal to the oracle's and to
+     `--no-batch`'s; 50 queries in the factorized wave, 20 as
+     materialized stage ops, none on the per-query executor;
   4. data scale through Engine.run_workload: a Zipf(1.1) fact of 2^27
      rows over 2^20 keys joined with a 2^20-row dimension, and a star of
      a 2^24-row fact with two 2^20-row dimensions, each against its
      closed-form NumPy oracle; the star again through the per-query
-     executor, and a cyclic triangle of 2^20-row relations through it
-     against the port's oracle;
+     executor and through the batch path's materialized fallback (the
+     dense fused stage with factorized=False, and the sort backend's
+     per-op path), and a cyclic triangle of 2^20-row relations
+     through the per-query executor and the batch path, against the
+     port's oracle. The fallback runs print their stage ops, readbacks,
+     dispatches, launches, peak memory and top device ops, and count the
+     synchronizing calls of a warm run under
+     torch.cuda.set_sync_debug_mode("warn"): none inside a round, one
+     per readback in all;
   5. the kernel shootout, `bench_kernels --log-rows 26`, in-process:
      its lines, and the launches of its run (the radix kernels' path).
 
@@ -380,11 +391,12 @@ def phase_cli(dev):
 
 # ---- phase 3b: the per-query path (--no-batch) on the same catalog ----
 
-def make_fallback_queries(rng, rels, batch_engine, n_queries=20):
-    """Queries the wave-batched path does not plan, in turn: cycles over
+def make_fallback_queries(rng, rels, batch_executor, n_queries=20):
+    """Queries the factorized wave does not plan, in turn: cycles over
     three relations, same-slot predicates without cross joins, and
-    filter-only queries. Each is kept only if the batch engine refuses
-    it (NotImplementedError), so every one needs the per-query path."""
+    filter-only queries. Each is kept only if the batch executor's tree
+    planner leaves it to the materialized fallback (no joins, or no
+    factorized plan)."""
     from radixhashjoin_tpu_torch.workload import parse_query
 
     def col_of(slots, s):
@@ -425,19 +437,21 @@ def make_fallback_queries(rng, rels, batch_engine, n_queries=20):
             0 if preds else 1, 3)))]
         line = f"{' '.join(map(str, slots))}|{'&'.join(preds)}|" \
                f"{projs(slots)}"
-        try:
-            batch_engine.run_batch([parse_query(line)])
-        except NotImplementedError:
+        q = parse_query(line)
+        if not q.joins or batch_executor._ftree_plan_for(q) is None:
             lines.append(line)
             kinds.append(kind)
     return lines, kinds
 
 
-def phase_no_batch(dev):
-    """The contest-shaped catalog's 50 tree queries plus ~20 queries the
-    batch path refuses, through `--no-batch` as a subprocess and
-    in-process: every line equals the oracle's, and the tree queries'
-    lines equal the batch path's."""
+def phase_fallback_cli(dev):
+    """The contest-shaped catalog's 50 tree queries plus 20 queries the
+    factorized wave does not plan, in two batches: through `--no-batch`
+    (phase 3b) and through the default batch path (phase 3c), each as a
+    subprocess and in-process. Every line equals the oracle's, the two
+    paths' lines are equal, and the batch path answers all 70 itself:
+    50 in its factorized wave, 20 as materialized stage ops, none on the
+    per-query executor."""
     from radixhashjoin_tpu_torch import kernels
     from radixhashjoin_tpu_torch.config import EngineConfig
     from radixhashjoin_tpu_torch.models.engine import Engine, main
@@ -456,7 +470,7 @@ def phase_no_batch(dev):
         loaded = [load_relation(p) for p in paths]
         batch_engine = Engine(loaded, EngineConfig(), device=dev)
         extra, kinds = make_fallback_queries(np.random.default_rng(7), rels,
-                                             batch_engine)
+                                             batch_engine.batch_executor)
         work = tree + extra[:10] + ["F"] + extra[10:] + ["F"]
         batches = parse_work_stream(work)
         t0 = time.perf_counter()
@@ -467,49 +481,79 @@ def phase_no_batch(dev):
             raise AssertionError("batch path differs from the oracle on "
                                  "the tree queries")
         stream = "\n".join(paths + ["Done"] + work) + "\n"
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "radixhashjoin_tpu_torch", "--device",
-             dev.type, "--no-batch"], input=stream, capture_output=True,
-            text=True, cwd=REPO, timeout=600)
-        cli_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"--no-batch CLI exit {proc.returncode}:\n"
-                                 f"{proc.stderr[-4000:]}")
-        if proc.stdout.splitlines() != want:
-            raise AssertionError("--no-batch CLI lines differ from the "
-                                 "oracle's")
-        for k in kernels.LAUNCHES:
-            kernels.LAUNCHES[k] = 0
-        out = io.StringIO()
-        t0 = time.perf_counter()
-        engine = main(io.StringIO(stream), out,
-                      EngineConfig(batch_execution=False), device=dev)
-        first_s = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
-        got = out.getvalue().splitlines()
-        if got != want:
-            raise AssertionError("in-process --no-batch lines differ from "
-                                 "the oracle's")
-        if got[:len(batch_lines)] != batch_lines:
-            raise AssertionError("per-query tree lines differ from the "
-                                 "batch path's")
-        counters = dict(engine.executor.counters)
-        warm = []
-        for _ in range(3):
+        lines = {}
+        for label, args, cfg in (
+                ("no_batch_cli", ["--no-batch"],
+                 EngineConfig(batch_execution=False)),
+                ("default_cli", [], EngineConfig())):
             t0 = time.perf_counter()
-            if engine.run_workload(batches) != want:
-                raise AssertionError("--no-batch warm rerun differs")
-            warm.append(time.perf_counter() - t0)
-    print(json.dumps({
-        "phase": "no_batch_cli", "queries": len(want),
-        "tree_queries": len(batch_lines),
-        "fallback_queries": {k: kinds.count(k) for k in set(kinds)},
-        "null_lines": sum(line.startswith("NULL") for line in want),
-        "lines_equal_oracle": True, "tree_lines_equal_batch_path": True,
-        "cli_subprocess_s": cli_s, "inprocess_first_s": first_s,
-        "inprocess_warm_s": warm, "oracle_s": oracle_s,
-        "counters": counters, "launches": launches}))
+            proc = subprocess.run(
+                [sys.executable, "-m", "radixhashjoin_tpu_torch", "--device",
+                 dev.type, *args], input=stream, capture_output=True,
+                text=True, cwd=REPO, timeout=600)
+            cli_s = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"{label} CLI exit {proc.returncode}:"
+                                     f"\n{proc.stderr[-4000:]}")
+            if proc.stdout.splitlines() != want:
+                raise AssertionError(f"{label} CLI lines differ from the "
+                                     f"oracle's")
+            # the in-process run: kernel counts from zero
+            for k in kernels.LAUNCHES:
+                kernels.LAUNCHES[k] = 0
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            engine = main(io.StringIO(stream), out, cfg, device=dev)
+            first_s = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            got = out.getvalue().splitlines()
+            if got != want:
+                raise AssertionError(f"in-process {label} lines differ "
+                                     f"from the oracle's")
+            if got[:len(batch_lines)] != batch_lines:
+                raise AssertionError(f"{label} tree lines differ from the "
+                                     f"batch path's")
+            lines[label] = got
+            executor = dict(engine.executor.counters)
+            batch = (dict(engine.batch_executor.counters)
+                     if engine.batch_executor is not None else None)
+            warm = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                if engine.run_workload(batches) != want:
+                    raise AssertionError(f"{label} warm rerun differs")
+                warm.append(time.perf_counter() - t0)
+            row = {
+                "phase": label, "queries": len(want),
+                "tree_queries": len(batch_lines),
+                "fallback_queries": {k: kinds.count(k) for k in set(kinds)},
+                "null_lines": sum(ln.startswith("NULL") for ln in want),
+                "lines_equal_oracle": True,
+                "tree_lines_equal_batch_path": True,
+                "cli_subprocess_s": cli_s, "inprocess_first_s": first_s,
+                "inprocess_warm_s": warm, "oracle_s": oracle_s,
+                "counters": executor if batch is None else batch,
+                "launches": launches}
+            if batch is not None:
+                # every query on the batch path: 50 in the wave, none on
+                # the per-query executor
+                if batch["ftree_queries"] != len(batch_lines):
+                    raise AssertionError(f"ftree queries {batch}")
+                if executor["queries"] != 0:
+                    raise AssertionError(f"per-query executor ran {executor}")
+                if dev.type == "cuda" and min(launches[k]
+                                              for k in WAVE_KERNELS) == 0:
+                    raise AssertionError(f"{label} skipped a kernel: "
+                                         f"{launches}")
+                row["torch_executor_queries"] = executor["queries"]
+                row["lines_equal_no_batch"] = got == lines["no_batch_cli"]
+                if not row["lines_equal_no_batch"]:
+                    raise AssertionError("default and --no-batch lines "
+                                         "differ")
+                if dev.type == "cuda":
+                    row["device_profile"] = _profile(
+                        lambda: engine.run_workload(batches))
+            print(json.dumps(row))
 
 
 # ---- phase 4: data scale ----
@@ -580,7 +624,7 @@ def _profile(run, top=8):
 
 
 def phase_scale(dev, zipf_rows=ZIPF_ROWS, star_rows=STAR_ROWS,
-                n_keys=DIM_KEYS):
+                n_keys=DIM_KEYS, triangle_rows=TRIANGLE_ROWS):
     from radixhashjoin_tpu_torch.storage import Relation
     from radixhashjoin_tpu_torch.workload import (FilterPred, JoinPred,
                                                   Projection, Query)
@@ -648,12 +692,133 @@ def phase_scale(dev, zipf_rows=ZIPF_ROWS, star_rows=STAR_ROWS,
     line["batch_path_warm_s"] = lines[-1]["warm_query_s"]
     lines.append(line)
     print(json.dumps(line))
+    # the same star through the batch path's materialized fallback: the
+    # dense fused stage (defer_attach, terminal, project_defer) and the
+    # sort backend's per-op path
+    from radixhashjoin_tpu_torch.config import EngineConfig
+    for name, cfg, dense in (
+            ("star_batch_materialized", EngineConfig(factorized=False), True),
+            ("star_batch_sort", EngineConfig(join_backend="sort"), False)):
+        line = _batch_fallback_run(name, [fact] + dims, q,
+                                   [" ".join(map(str, exp))],
+                                   star_rows + 2 * n_keys, dev, cfg, dense)
+        lines.append(line)
+        print(json.dumps(line))
     del fact, dims, k1, k2, live
 
-    line = _triangle(rng, dev, TRIANGLE_ROWS)
-    lines.append(line)
-    print(json.dumps(line))
+    for line in _triangle(rng, dev, triangle_rows):
+        lines.append(line)
+        print(json.dumps(line))
     return lines
+
+
+def _sync_check(eng, run):
+    """One warm run under torch.cuda.set_sync_debug_mode("warn"): the
+    synchronizing calls inside each stage round, and in the whole run
+    beside its readbacks (each readback is one device-to-host copy, one
+    synchronizing call)."""
+    import warnings
+
+    import torch
+
+    def syncs(caught):
+        return sum("synchronizing" in str(w.message) for w in caught)
+
+    bex = eng.batch_executor
+    rounds = []
+    run_round = bex._run_round
+
+    def counted(*a, **k):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run_round(*a, **k)
+        rounds.append(syncs(caught))
+    bex._run_round = counted            # the instance attribute shadows it
+    reads = bex.counters["readbacks"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        del bex._run_round
+    out = {"syncs_per_round": rounds,
+           "syncs_in_run": syncs(caught) + sum(rounds),
+           "readbacks_in_run": bex.counters["readbacks"] - reads}
+    if any(rounds) or out["syncs_in_run"] != out["readbacks_in_run"]:
+        raise AssertionError(f"synchronizing calls beyond the readbacks: "
+                             f"{out}")
+    return out
+
+
+def _batch_fallback_run(name, rels, q, expected, n_tuples, dev, config,
+                        dense=True):
+    """One query through the batch path's materialized fallback under
+    `config`: first run, three warm runs, the op kinds of its stages,
+    readbacks and dispatches of one run, peak memory, kernel launches
+    (the build and lookup on the dense backend; the sort backend runs
+    neither), the sync check and a profiled run; exact against
+    `expected`."""
+    import torch
+    from radixhashjoin_tpu_torch import kernels
+    from radixhashjoin_tpu_torch.models import batch as batch_mod
+    from radixhashjoin_tpu_torch.models.engine import Engine
+
+    rounds = []
+    run_stage = batch_mod.run_stage
+
+    def recording(*a, **k):
+        rounds.append([op[0] for op in a[7]])
+        return run_stage(*a, **k)
+    batch_mod.run_stage = recording
+    try:
+        before = dict(kernels.LAUNCHES)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        eng = Engine(rels, config, device=dev)
+        t0 = time.perf_counter()
+        got = eng.run_workload([[q]])
+        first_s = time.perf_counter() - t0
+        if got != expected:
+            raise AssertionError(f"{name}: {got} != oracle {expected}")
+        counters = dict(eng.batch_executor.counters)
+        if counters["ftree_queries"] or eng.executor.counters["queries"]:
+            raise AssertionError(f"{name}: not on the materialized "
+                                 f"fallback: {counters}")
+        grew = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        if (dev.type == "cuda" and dense
+                and min(grew[k] for k in WAVE_KERNELS) == 0):
+            raise AssertionError(f"{name}: a kernel was not launched: "
+                                 f"{grew}")
+        stage_ops = list(rounds)
+        warm = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            if eng.run_workload([[q]]) != expected:
+                raise AssertionError(f"{name}: warm rerun differs")
+            warm.append(time.perf_counter() - t0)   # ends in a readback
+        line = {"phase": "scale", "cell": name, "join_input_tuples": n_tuples,
+                "backend": eng.batch_executor.join.kind,
+                "fuse_stages": config.fuse_stages,
+                "factorized": config.factorized,
+                "first_run_s": first_s, "warm_query_s": warm,
+                "tuples_per_s": n_tuples / float(np.median(warm)),
+                "readbacks_per_run": counters["readbacks"],
+                "dispatches_per_run": counters["dispatches"],
+                "spec_retries": counters["spec_retries"],
+                "stage_ops_per_round": stage_ops,
+                "launches_first_run": grew, "exact": True}
+        if dev.type == "cuda":
+            line["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+            line["sync_check"] = _sync_check(
+                eng, lambda: eng.run_workload([[q]]))
+            line["device_profile"] = _profile(
+                lambda: eng.run_workload([[q]]))
+    finally:
+        batch_mod.run_stage = run_stage
+    return line
 
 
 def _per_query_run(name, rels, q, expected, n_tuples, dev):
@@ -665,7 +830,8 @@ def _per_query_run(name, rels, q, expected, n_tuples, dev):
     from radixhashjoin_tpu_torch.models.engine import Engine
 
     before = dict(kernels.LAUNCHES)
-    torch.cuda.reset_peak_memory_stats()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     eng = Engine(rels, EngineConfig(batch_execution=False), device=dev)
     t0 = time.perf_counter()
     got = eng.run_workload([[q]])
@@ -679,22 +845,25 @@ def _per_query_run(name, rels, q, expected, n_tuples, dev):
             raise AssertionError(f"{name}: warm rerun differs")
         warm.append(time.perf_counter() - t0)   # ends in a readback
     reads = eng.executor.counters["readbacks"] // 4
-    return {"phase": "scale", "cell": name, "join_input_tuples": n_tuples,
+    line = {"phase": "scale", "cell": name, "join_input_tuples": n_tuples,
             "first_run_s": first_s, "warm_query_s": warm,
             "tuples_per_s": n_tuples / float(np.median(warm)),
             "readbacks_per_query": reads,
             "launches": {k: kernels.LAUNCHES[k] - before[k]
                          for k in before},
-            "exact": True,
-            "max_memory_allocated": torch.cuda.max_memory_allocated(),
-            "device_profile": _profile(lambda: eng.run_workload([[q]]))}
+            "exact": True}
+    if dev.type == "cuda":
+        line["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        line["device_profile"] = _profile(lambda: eng.run_workload([[q]]))
+    return line
 
 
 def _triangle(rng, dev, n):
     """A cyclic triangle R(a, b) ⋈ S(b, c) ⋈ T(c, a) of n-row relations,
-    which the wave-batched path cannot plan: n planted triangles over
+    which the factorized wave cannot plan: n planted triangles over
     values below n, half of T's rows broken so that the closing
-    predicate filters, against the port's oracle."""
+    predicate filters, against the port's oracle; through the per-query
+    executor and through the batch path's materialized fallback."""
     from radixhashjoin_tpu_torch.oracle import OracleExecutor
     from radixhashjoin_tpu_torch.storage import Relation
     from radixhashjoin_tpu_torch.workload import parse_query
@@ -718,7 +887,12 @@ def _triangle(rng, dev, n):
     line = _per_query_run("triangle_per_query", rels, q,
                           [" ".join(map(str, want))], 3 * n, dev)
     line.update(load_s=load_s, oracle_s=oracle_s)
-    return line
+    from radixhashjoin_tpu_torch.config import EngineConfig
+    batch = _batch_fallback_run("triangle_batch", rels, q,
+                                [" ".join(map(str, want))], 3 * n, dev,
+                                EngineConfig())
+    batch["per_query_warm_s"] = line["warm_query_s"]
+    return [line, batch]
 
 
 # ---- phase 5: the kernel shootout ----
@@ -768,7 +942,7 @@ def main() -> int:
                                 if "Used" in ln or "spill" in ln]}))
     timed, errs = phase_kernels(dev)
     launches = phase_cli(dev)
-    phase_no_batch(dev)
+    phase_fallback_cli(dev)
     phase_scale(dev)
     launches_radix = phase_shootout(dev)
     for pkg in ("jax", "radixhashjoin_tpu"):

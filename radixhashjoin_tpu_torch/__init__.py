@@ -7,12 +7,15 @@ for the message-table build and lookup. `radixhashjoin_tpu` stays the
 reference: every module here names its counterpart there, and the tests
 hold both packages to identical results on the same inputs.
 
-Slice covered so far: the factorized main path. Every tree-shaped query
-of a batch plans on the host (models/batch.py), runs as ONE level-batched
-message-passing wave (ops/factorized.py) whose build and lookup kernels
-live in csrc/tables.cu, and folds its SUMs exactly in int64
-(utils/limbs.py). Whatever needs code that is not ported yet raises
-NotImplementedError naming ROADMAP.md.
+Slices covered so far: the wave-batched path, which answers every query
+shape of a batch. Tree-shaped queries plan on the host (models/batch.py)
+and run as ONE level-batched message-passing wave (ops/factorized.py);
+the rest run as materialized stage ops of the same round (ops/stage.py)
+or, on the sort backend, through the per-op path. The build and lookup
+kernels live in csrc/tables.cu, and SUMs fold exactly in int64
+(utils/limbs.py). The per-query executor (models/executor.py) and the
+radix kernels of csrc/radix.cu are ported too. Whatever needs code that
+is not ported yet raises NotImplementedError naming ROADMAP.md.
 
 This package imports neither jax nor radixhashjoin_tpu: its host
 modules (config, storage, workload, oracle) are its own, each naming
@@ -21,10 +24,12 @@ its counterpart.
 Layout:
   config, storage, workload, oracle — host side: settings, relation
              files, stream parsing, the NumPy oracle and line format
-  models   — Engine facade, batch executor + host tree planner, catalog
-  ops      — factorized wave, fused stage runner, table build/lookup
+  models   — Engine facade, batch executor + host planners, per-query
+             executor, catalog
+  ops      — factorized wave, fused stage runner, joins, table
+             build/lookup
   utils    — padding policy, exact int64 folds
-  kernels  — nvcc build + ctypes binding of csrc/tables.cu
+  kernels  — nvcc build + ctypes binding of csrc/*.cu
 """
 
 from .config import EngineConfig

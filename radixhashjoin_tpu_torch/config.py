@@ -1,12 +1,12 @@
 """Engine configuration of the port (counterpart: radixhashjoin_tpu/config.py).
 
-Field names and defaults are the reference's for everything the ported
-factorized path reads. Fields whose non-default values need code that is
-not ported yet are kept too, so that a setting carried over from the
-reference raises NotImplementedError at construction instead of being
-ignored. The reference's knobs for layers the port does not have yet
-(speculative expansion, radix exchange, skew handling, limb chunking,
-the native host runtime) are not fields here.
+Field names and defaults are the reference's for everything the port
+reads. Fields whose non-default values need code that is not ported yet
+are kept too, so that a setting carried over from the reference raises
+NotImplementedError at construction instead of being ignored. The
+reference's knobs for layers the port does not have yet (radix
+exchange, skew handling, limb chunking, the native host runtime) are not
+fields here.
 """
 
 from __future__ import annotations
@@ -30,25 +30,38 @@ class EngineConfig:
     # --- execution backend ---
     # "auto": the dense direct-address path when the catalog's value
     # domain fits max_dense_domain (int32 entries: 2**24 -> 64 MB table
-    # on the device); "dense" forces it. The per-query executor
-    # (batch_execution=False) always runs the sort join, as the
-    # reference's does, and takes any of the three.
+    # on the device), else the sort join; "dense" / "sort" force one.
+    # The per-query executor (batch_execution=False) always runs the
+    # sort join, as the reference's does.
     join_backend: str = "auto"
     max_dense_domain: int = 1 << 24
 
-    # True: one factorized wave per batch (models/batch.py); False: one
-    # query at a time through the per-query executor (models/executor.py)
+    # True: wave-batched execution of each batch (models/batch.py);
+    # False: one query at a time through the per-query executor
+    # (models/executor.py)
     batch_execution: bool = True
+    # dense backend: fuse each round into one stage (ops/stage.py);
+    # False runs the per-op path (one stacked readback per join wave)
+    fuse_stages: bool = True
+    # a tree-shaped query within the exact caps runs as count-message
+    # passing (ops/factorized.py); False materializes every query
+    factorized: bool = True
+    # non-deferable middle joins expand at a stats-estimated size inside
+    # the same stage; a device flag records mis-speculation and the query
+    # retries on the exact readback path
+    speculate_expansions: bool = True
+    speculate_slack: float = 4.0        # padding over the estimate
+    speculate_max: int = 1 << 22        # never speculate wider than this
+    # stats-driven join reordering (models/planner.py); off =>
+    # written-order parity
+    enable_join_reordering: bool = False
 
     # --- settings that need unported code (non-defaults raise) ---
     force_oracle: bool = False
-    fuse_stages: bool = True
-    factorized: bool = True
-    # every query of a batch runs in ONE level-batched wave (one round)
+    # every factorized query of a round runs in ONE level-batched wave
     ftree_wave: bool = True
     stage_group: Optional[int] = None
     ftree_window_sort: str = "auto"
-    enable_join_reordering: bool = False
     profile: bool = False
     mesh_devices: Optional[int] = None
 
@@ -60,22 +73,15 @@ class EngineConfig:
 # ported yet: field -> (allowed values, what it needs)
 _UNPORTED = {
     "mesh_devices": ((None,), "the distributed layer (item 9)"),
-    "enable_join_reordering": ((False,), "the join-order planner (item 8)"),
-    "force_oracle": ((False,), "the oracle route (the port has no quiet "
-                               "route to the oracle)"),
-    "factorized": ((True,),
-                   "the wave-batched materialized fallback (item 7b)"),
-    "fuse_stages": ((True,), "the per-op execution path (item 7b)"),
+    "force_oracle": ((False,), "the oracle route (item 13; the port has "
+                               "no quiet route to the oracle)"),
     "ftree_wave": ((True,), "per-query ftree ops, kept out until an A/B "
                             "on the H100 decides them (item 11)"),
     "stage_group": ((None,), "rounds of grouped queries, kept out until "
                              "an A/B on the H100 decides them (item 11)"),
-    "join_backend": (("auto", "dense"),
-                     "the wave-batched sort join backend (item 7b; the "
-                     "per-query executor, batch_execution=False, runs it)"),
     "ftree_window_sort": (("auto", "off"),
                           "the huge-node sorted windows (item 6)"),
-    "profile": ((False,), "the per-operator profiler"),
+    "profile": ((False,), "the per-operator profiler (item 12)"),
 }
 
 
@@ -83,12 +89,12 @@ def check_config(config: EngineConfig) -> None:
     """Raise NotImplementedError for a config that needs unported code."""
     for field, (allowed, needs) in _UNPORTED.items():
         value = getattr(config, field)
-        if field == "join_backend" and not config.batch_execution:
-            allowed = allowed + ("sort",)
         if value not in allowed:
             raise NotImplementedError(
                 f"EngineConfig({field}={value!r}) needs {needs}, which is "
                 f"not ported yet (ROADMAP.md, 'Modules to port')")
+    if config.join_backend not in ("auto", "dense", "sort"):
+        raise ValueError(f"unknown join_backend {config.join_backend!r}")
 
 
 DEFAULT = EngineConfig()

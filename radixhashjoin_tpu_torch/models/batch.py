@@ -1,20 +1,37 @@
 """Wave-batched query executor: the port's main path (counterpart:
 radixhashjoin_tpu/models/batch.py).
 
-Every query of a batch plans on the host as a factorized join tree
-(`_extract_tree`, `_ftree_caps`, `_plan_ftree`, `_ftree_plan_for`,
-copied from the reference line for line: host code, no device work),
-the planned queries of the batch merge into ONE "ftree_wave" op
-(ops/stage.py -> ops/factorized.py), and the batch's flags and int64
-sums come back in one packed vector. The final sweep reads it with ONE
-device-to-host copy and combines the exact u64 sums on the host.
+The host drives a whole batch breadth-first and synchronizes only where
+it needs a value:
 
-Ported: the factorized path only. A query that does not factorize (a
-cycle the planner cannot rewrite, over-cap multiplicities, no joins)
-and a catalog whose domain exceeds max_dense_domain need the
-wave-batched materialized fallback, which is not ported yet: they raise
-NotImplementedError (the per-query executor, batch_execution=False,
-answers them). There is no quiet route to the oracle or the CPU.
+  readbacks per batch = 1 (flags + spec flags + SUMs, one sweep)
+                      + one stacked readback per residual join wave
+
+Dense backend with fuse_stages=True (the default): each round is ONE
+stage (ops/stage.py). Queries that plan as a factorized join tree
+(`_extract_tree`, `_ftree_caps`, `_plan_ftree`, `_ftree_plan_for`,
+copied from the reference line for line) merge into the round's head
+"ftree_wave" op. Every other query (a cycle the planner cannot rewrite,
+over-cap multiplicities, no joins, factorized=False) runs as
+materialized stage ops in the same round (`_plan_stage`): filters,
+probes and expansions, deferred middle attaches, speculative
+expansions, fused terminal joins. Only the probe of a middle join that
+can be neither deferred nor speculated ends a round: its pair total is
+read back, stacked with the round's other totals, to size the
+expansion. Mis-speculated expansions (device-verified) rerun on the
+exact path.
+
+Sort backend (a catalog domain above max_dense_domain, or
+join_backend="sort") or fuse_stages=False: the per-op path, one
+stacked readback per join wave and one final sweep.
+
+Representation: each query's intermediate is one (k, P) int32 device
+matrix (row j holds the rowids of the j-th joined slot). Counts stay
+0-d device tensors; sums are int64 (utils/limbs.py), combined on the
+host into exact u64 values. `counters`: dispatches (stage runs),
+readbacks (device-to-host copies), spec retries, factorized queries.
+There is no route to the oracle, to the per-query executor or to the
+CPU.
 """
 
 from __future__ import annotations
@@ -24,17 +41,72 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from ..config import DEFAULT, EngineConfig
-from ..ops.stage import run_stage
+from ..ops.aggregate import gather_partials_matrix
+from ..ops.backend import JoinBackend
+from ..ops.chain import eq_filter_matrix, eq_filter_rows
+from ..ops.filter import filter_full, filter_live
+from ..ops.join import JoinCapacityError
+from ..ops.stage import part_shape, run_stage
 from ..ops.tables import check_impl
+from ..ops.terminal import channel_spec, terminal_join_and_project
 from ..storage import Relation
-from ..utils.limbs import combine_planes
+from ..utils.limbs import U64_MASK, combine_channels
 from ..workload import Query
 from .device_catalog import DeviceCatalog
+from .planner import _propagate_join, _rough_filter_estimate
+from .stats import estimate_join_output, seed_stats
 
+# sentinel: a query whose speculative expansion under-sized (device spec
+# flag False) reruns on the exact readback path
+_RETRY = object()
 _UNPLANNED = object()
 
-_ROADMAP_FALLBACK = ("the materialized fallback is not ported yet "
-                     "(ROADMAP.md, 'Modules to port' item 7b)")
+
+def _combine(kind, seg) -> int:
+    """Exact u64 of one packed partial (ops/stage.py part_shape): a
+    plane's int64, or a fresh-side T-channel vector."""
+    if isinstance(kind, tuple):
+        return combine_channels(seg, kind[1])
+    return int(seg[0]) & U64_MASK
+
+
+class _QState:
+    __slots__ = ("q", "live_rows", "live_cnt", "mat", "slot_row", "icount",
+                 "null", "flags", "probe", "fresh_slot", "sums", "terminal",
+                 "next_join", "pending", "mat_rows", "defers", "speculate",
+                 "est", "flag_refs", "spec_refs", "probe_total_ref")
+
+    def __init__(self, q: Query, speculate: bool = True):
+        self.q = q
+        self.live_rows: List[torch.Tensor] = []
+        self.live_cnt: List[object] = []      # int or 0-d device int32
+        self.mat: Optional[torch.Tensor] = None  # (k, P) intermediate
+        self.slot_row: Dict[int, int] = {}    # slot -> matrix row
+        self.icount: object = 0
+        self.null = False                      # decided on host (total 0)
+        self.flags: List[torch.Tensor] = []    # device bools, OR'd at the end
+        self.probe = None                      # (order, lo, off, cum, total)
+        self.fresh_slot = None
+        # per projection: list of (kind, partials, plane shift); an
+        # empty list = never-joined slot (sum 0). Wide (u64) projection
+        # columns contribute one entry per 16-bit plane.
+        self.sums: List[list] = []
+        self.terminal = False                  # last join ran fused
+        # fused-stage bookkeeping (host mirrors of static structure)
+        self.next_join = 0
+        self.pending = None                    # ("pair", s1, s2)|("attach", f)
+        self.mat_rows = 0
+        # deferred middle attaches: each entry is {"slot", "mult_row",
+        # "lv_row", "col_join", "key_ids"}; mult/lv are matrix rows that
+        # ride along through compactions and expansions
+        self.defers: List[dict] = []
+        self.speculate = speculate
+        self.est = None                        # List[SlotStats] (lazy)
+        # fused-path references (vec id, offset) into the rounds' packed
+        # int64 vectors (ops/stage.py run_stage)
+        self.flag_refs: List[tuple] = []
+        self.spec_refs: List[tuple] = []
+        self.probe_total_ref = None
 
 
 class BatchExecutor:
@@ -46,8 +118,7 @@ class BatchExecutor:
                                                 device=device)
         self.config = config
         self.device = self.catalog.device
-        # dispatches = stage runs; readbacks = device-to-host copies
-        self.counters = {"dispatches": 0, "readbacks": 0,
+        self.counters = {"dispatches": 0, "readbacks": 0, "spec_retries": 0,
                          "ftree_queries": 0}
         # query-signature -> planned ftree (or None = doesn't factorize)
         self._ftree_plans: Dict[tuple, object] = {}
@@ -57,11 +128,215 @@ class BatchExecutor:
         if kind == "auto":
             kind = ("dense" if self.catalog.domain <= config.max_dense_domain
                     else "sort")
-        if kind != "dense":
-            raise NotImplementedError(
-                f"join backend {kind!r} (catalog domain "
-                f"{self.catalog.domain}, max_dense_domain "
-                f"{config.max_dense_domain}): {_ROADMAP_FALLBACK}")
+        self.join = JoinBackend(kind, self.catalog.domain)
+
+    # ---- per-op phases (sort backend / fusion off) ----
+
+    def _init_and_filter(self, q: Query) -> _QState:
+        cat = self.catalog
+        st = _QState(q)
+        for s in range(len(q.slots)):
+            n = cat.relations[q.slots[s]].num_tuples
+            st.live_rows.append(cat.iota(cat.bucket(n)))
+            st.live_cnt.append(n)
+        pristine = set(range(len(q.slots)))
+        for f in q.filters:
+            col = cat.col(q.slots[f.slot], f.col)
+            opc, const = cat.encode_filter(f.op, f.value)
+            if f.slot in pristine:
+                # first filter on the slot: scan the column directly
+                n = cat.relations[q.slots[f.slot]].num_tuples
+                rows, cnt = filter_full(col, n, const, opc, cat.bucket(n))
+                pristine.discard(f.slot)
+            else:
+                rows, cnt = filter_live(st.live_rows[f.slot],
+                                        st.live_cnt[f.slot], col, const, opc)
+            st.live_rows[f.slot], st.live_cnt[f.slot] = rows, cnt
+            st.flags.append(cnt == 0)   # device bool; NULL if ever true
+        return st
+
+    def _join_wave_probe(self, st: _QState, k: int) -> bool:
+        """Dispatch join k's device work. Returns True if a probe total
+        readback is pending (cases 1/2); same-slot and case-3 joins
+        complete without any readback."""
+        cat = self.catalog
+        q = st.q
+        j = q.joins[k]
+        s1, c1, s2, c2 = j.slot1, j.col1, j.slot2, j.col2
+        colA = cat.col(q.slots[s1], c1)
+        colB = cat.col(q.slots[s2], c2)
+
+        if s1 == s2:
+            # same-slot predicate: row filter, never NULL
+            if s1 not in st.slot_row:
+                # fresh slot: creates a singleton intermediate and, like
+                # case 1, wipes any other component
+                rows, cnt = eq_filter_rows(colA, colB, st.live_rows[s1],
+                                           st.live_cnt[s1])
+                st.mat = rows[None]
+                st.slot_row = {s1: 0}
+                st.icount = cnt
+            else:
+                st.mat, st.icount = eq_filter_matrix(
+                    colA, colB, st.mat, st.slot_row[s1], st.slot_row[s2],
+                    st.icount)
+            return False
+
+        j1, j2 = s1 in st.slot_row, s2 in st.slot_row
+        if j1 and j2:
+            # case 3: row filter; NULL iff pair set empty -> deferred flag
+            nonempty = self.join.any_common_matrix(
+                colA, colB, st.mat, st.slot_row[s1], st.slot_row[s2],
+                st.icount)
+            st.mat, st.icount = eq_filter_matrix(
+                colA, colB, st.mat, st.slot_row[s1], st.slot_row[s2],
+                st.icount)
+            st.flags.append(~nonempty)
+            return False
+
+        # factorized terminal join (dense backend): the last join's output
+        # is only ever aggregated — one fused call computes the dense
+        # count probe AND every projection; nothing materializes, no
+        # readback; NULL defers to a device flag
+        if k == len(q.joins) - 1 and self.join.kind == "dense":
+            domain = self.catalog.domain
+            if not j1 and not j2:
+                # case-1 wipe semantics: only s1/s2 survive
+                ex_kind, ex_slot, full_row = "rows", s1, 0
+                ex_source = st.live_rows[s1]
+                icount = st.live_cnt[s1]
+                fresh, col_full, col_fresh = s2, colA, colB
+                fresh_col = c2
+                st.slot_row = {}
+                st.mat = None
+            else:
+                if j1:
+                    full, fresh, col_full, col_fresh = s1, s2, colA, colB
+                    fresh_col = c2
+                else:
+                    full, fresh, col_full, col_fresh = s2, s1, colB, colA
+                    fresh_col = c1
+                ex_kind, ex_slot, full_row = "mat", None, st.slot_row[full]
+                ex_source = st.mat
+                icount = st.icount
+
+            fresh_mult = cat.max_mult(q.slots[fresh], fresh_col)
+            specs, cols, shifts, plane_n = [], [], [], []
+            for p in q.projections:
+                if p.slot == fresh:
+                    spec = "fresh"
+                elif ex_kind == "mat" and p.slot in st.slot_row:
+                    spec = ("mat", st.slot_row[p.slot])
+                elif ex_kind == "rows" and p.slot == ex_slot:
+                    spec = ("rows",)
+                else:
+                    plane_n.append(0)
+                    continue
+                planes = cat.proj_planes(q.slots[p.slot], p.col)
+                vmaxes = cat.plane_maxes(q.slots[p.slot], p.col)
+                plane_n.append(len(planes))
+                for (plane, sh), vmax in zip(planes, vmaxes):
+                    specs.append(("fresh", channel_spec(fresh_mult, vmax))
+                                 if spec == "fresh" else spec)
+                    cols.append(plane)
+                    shifts.append(sh)
+
+            plan = (ex_kind, full_row, tuple(specs))
+            empty, outs = terminal_join_and_project(
+                ex_source, icount, st.live_rows[fresh], st.live_cnt[fresh],
+                col_full, col_fresh, tuple(cols), plan, domain)
+            st.flags.append(empty)
+            oi = 0
+            for npl in plane_n:
+                parts = []
+                for _ in range(npl):
+                    kind = (("fresh", specs[oi][1])
+                            if specs[oi][0] == "fresh" else "weighted")
+                    parts.append((kind, outs[oi], shifts[oi]))
+                    oi += 1
+                st.sums.append(parts)
+            st.terminal = True
+            return False
+
+        if not j1 and not j2:
+            # case 1: probe between live sets
+            st.probe = self.join.probe_rows(colA, st.live_rows[s1],
+                                            st.live_cnt[s1], colB,
+                                            st.live_rows[s2],
+                                            st.live_cnt[s2])
+            st.fresh_slot = None
+        else:
+            # case 2: probe intermediate (full side) against fresh live set
+            if j1:
+                full, fresh, col_full, col_fresh = s1, s2, colA, colB
+            else:
+                full, fresh, col_full, col_fresh = s2, s1, colB, colA
+            st.probe = self.join.probe_matrix(
+                col_full, st.mat, st.slot_row[full], st.icount, col_fresh,
+                st.live_rows[fresh], st.live_cnt[fresh])
+            st.fresh_slot = fresh
+        return True
+
+    def _join_wave_expand(self, st: _QState, k: int, total: int) -> None:
+        """Finish join k after its total came back (cases 1/2)."""
+        if total < 0:
+            raise JoinCapacityError(
+                f"join {k} of query exceeds 2**31-1 output pairs")
+        if total == 0:
+            st.null = True
+            return
+        j = st.q.joins[k]
+        order, lo, off, cum, _ = st.probe
+        out_size = self.catalog.bucket(total)
+        if st.fresh_slot is None:
+            # case 1 discards any other slot's data
+            st.mat = self.join.expand_fresh_pair(
+                order, lo, off, cum, st.live_rows[j.slot1],
+                st.live_rows[j.slot2], out_size)
+            st.slot_row = {j.slot1: 0, j.slot2: 1}
+        else:
+            st.mat = self.join.expand_attach_fresh(
+                order, lo, off, cum, st.mat, st.live_rows[st.fresh_slot],
+                out_size)
+            st.slot_row[st.fresh_slot] = st.mat.shape[0] - 1
+        st.icount = total
+        st.probe = None
+
+    def _projections(self, st: _QState) -> None:
+        if st.terminal:        # sums already produced by the fused call
+            return
+        cat = self.catalog
+        for p in st.q.projections:
+            row = st.slot_row.get(p.slot)
+            if row is None:
+                st.sums.append([])
+                continue
+            st.sums.append([
+                ("limb", gather_partials_matrix(plane, st.mat, row,
+                                                st.icount), sh)
+                for plane, sh in cat.proj_planes(st.q.slots[p.slot], p.col)])
+
+    # ---- speculative expansion sizing (models/stats.py estimator) ----
+
+    def _ensure_est(self, st: _QState) -> None:
+        if st.est is None:
+            st.est = seed_stats(self.catalog.relations, st.q.slots)
+            for f in st.q.filters:
+                surviving = _rough_filter_estimate(st.est[f.slot], f.col,
+                                                   f.op, f.value)
+                st.est[f.slot].apply_filter(f.col, f.op, f.value, surviving)
+
+    def _spec_size(self, st: _QState, j) -> Optional[int]:
+        """Padded speculative output size for join j, or None when the
+        estimate (x slack) exceeds speculate_max — then the exact
+        readback path runs instead."""
+        self._ensure_est(st)
+        est = estimate_join_output(st.est[j.slot1], j.col1,
+                                   st.est[j.slot2], j.col2)
+        _propagate_join(st.est, j)
+        size = self.catalog.bucket(
+            max(int(est * self.config.speculate_slack), 1))
+        return size if size <= self.config.speculate_max else None
 
     # ---- factorized tree planner (ops/factorized.py) ----
 
@@ -490,7 +765,7 @@ class BatchExecutor:
                                   max(pm.bit_length(), 1)))
                     cols.append(plane)
                     # one int64 sum per plane (utils/limbs.py)
-                    sum_map.append((idx, sh))
+                    sum_map.append((idx, "weighted_seg", sh))
         flag_nodes = tuple(i for i in range(len(nodes)) if filt_ops[i])
         root = idx_of[comp["nodes"][0]]
         n_flags = len(flag_nodes) + 1
@@ -507,10 +782,11 @@ class BatchExecutor:
         return (("ftree", spec, len(cols), len(vals)), cols, vals,
                 n_flags, tuple(nodes))
 
-    def _ftree_eligible(self, q: Query) -> bool:
-        """The ftree branch opens a query that has joins (here every
-        query starts fresh: no prior join state, no pending expansion)."""
-        return self.config.factorized and bool(q.joins)
+    def _ftree_eligible(self, st: _QState, opening) -> bool:
+        """The ftree branch can only open a query: no prior join state,
+        no pending expansion."""
+        return (self.config.factorized and st.next_join == 0
+                and opening is None and bool(st.q.joins))
 
     def _ftree_plan_for(self, q: Query):
         """Cached ftree plan for a query, or None if it does not
@@ -564,68 +840,548 @@ class BatchExecutor:
             self._ftree_plans[key] = cached
         return cached
 
-    # ---- round runner + final sweep ----
+    # ---- fused-stage planner + round runner (dense backend) ----
 
-    def _run_round(self, queries: Sequence[Query]):
-        """Plan and run ONE stage covering every query of the batch.
-        Returns the packed vector (still on the device) and, per query,
-        (flag offsets, [(projection, sum offset, shift)])."""
-        plan, cols, vals, metas = [], [], [], []
-        for q in queries:
-            cached = (self._ftree_plan_for(q) if self._ftree_eligible(q)
-                      else None)
-            if cached is None:
-                raise NotImplementedError(
-                    f"query {q.text or q!r} does not factorize into a join "
-                    f"tree within the exact int32 caps (or has no joins): "
-                    f"{_ROADMAP_FALLBACK}")
-            fplan, fcols, fvals, fsum, fnf, _fnodes = cached
-            plan.extend(fplan)
-            cols.extend(fcols)
-            vals.extend(fvals)
-            metas.append((fnf, fsum))
-            self.counters["ftree_queries"] += 1
-        # the round's ftree ops run as one wave op: flags and sums come
-        # back in identical per-query order
-        wave = ("ftree_wave", tuple((op[1], op[2], op[3]) for op in plan),
-                sum(op[2] for op in plan), sum(op[3] for op in plan))
-        self.counters["dispatches"] += 1
-        packed = run_stage(tuple(cols), tuple(vals), (wave,), self.device,
-                           self.config.ftree_scatter,
-                           self.config.ftree_gather)
-        # packed layout: [every query's flags | every query's sums]
-        refs = []
-        fi, si = 0, sum(m[0] for m in metas)
-        for nf, fsum in metas:
-            refs.append((range(fi, fi + nf),
-                         [(idx, si + j, sh)
-                          for j, (idx, sh) in enumerate(fsum)]))
-            fi += nf
-            si += len(fsum)
-        return packed, refs
+    def _plan_stage(self, st: _QState, opening, slot_off: int, mi: int,
+                    pi):
+        """Build one stage's static plan for this query, with slot indices
+        offset into the round's concatenated live arrays, mat index `mi`,
+        and (for a stage opened by an expansion) probe index `pi`.
 
-    def _final_sweep_fused(self, queries: Sequence[Query], packed, refs
-                           ) -> List[Optional[List[int]]]:
-        """Read the packed vector with ONE device-to-host copy and
-        combine the exact u64 sums on the host."""
-        self.counters["readbacks"] += 1
-        host = packed.cpu().tolist()
-        results: List[Optional[List[int]]] = []
-        for q, (flag_offs, sum_refs) in zip(queries, refs):
-            if any(host[o] != 0 for o in flag_offs):
-                results.append(None)
+        Returns (plan, cols, vals, sum_map, n_flags, sums_done); sum_map
+        lists (projection index, partial kind, plane shift) in PARTIALS
+        order (the order the stage emits them); sums_done means every
+        projection is accounted for this stage (missing indices are
+        zero)."""
+        cat = self.catalog
+        q = st.q
+        plan, cols, vals, sum_map = [], [], [], []
+        n_flags = 0
+        # factorized fast path: tree-shaped query within the exact caps
+        # => ftree ops replace the filters AND the whole join pipeline
+        if self._ftree_eligible(st, opening):
+            cached = self._ftree_plan_for(q)
+            if cached is not None:
+                fplan, fcols, fvals, fsum, fnf, _fnodes = cached
+                plan.extend(fplan)
+                cols.extend(fcols)
+                vals.extend(fvals)
+                sum_map.extend(fsum)
+                n_flags += fnf
+                st.terminal = True
+                st.next_join = len(q.joins)
+                st.pending = None
+                self.counters["ftree_queries"] += 1
+                return plan, cols, vals, sum_map, n_flags, True
+        if st.next_join == 0 and opening is None:
+            pristine = set(range(len(q.slots)))
+            for f in q.filters:
+                col = cat.col(q.slots[f.slot], f.col)
+                opc, const = cat.encode_filter(f.op, f.value)
+                if f.slot in pristine:
+                    n = cat.relations[q.slots[f.slot]].num_tuples
+                    plan.append(("ffull", f.slot + slot_off, opc,
+                                 cat.bucket(n)))
+                    pristine.discard(f.slot)
+                else:
+                    plan.append(("flive", f.slot + slot_off, opc))
+                cols.append(col)
+                vals.append(int(const))
+                n_flags += 1
+        if opening is not None:
+            kind, out_size = opening
+            if kind == "pair":
+                _, s1, s2 = st.pending
+                plan.append(("expand_pair", pi, mi, s1 + slot_off,
+                             s2 + slot_off, out_size))
+                st.slot_row = {s1: 0, s2: 1}
+                st.defers = []              # case-1 wipe
+                st.mat_rows = 2
+            else:
+                _, fresh = st.pending
+                plan.append(("expand_attach", pi, mi, fresh + slot_off,
+                             out_size))
+                st.slot_row[fresh] = st.mat_rows
+                st.mat_rows += 1
+            st.pending = None
+
+        k = st.next_join
+        while k < len(q.joins):
+            j = q.joins[k]
+            s1, c1, s2, c2 = j.slot1, j.col1, j.slot2, j.col2
+            colA = cat.col(q.slots[s1], c1)
+            colB = cat.col(q.slots[s2], c2)
+            if s1 == s2:
+                if s1 not in st.slot_row:
+                    plan.append(("eqrows", mi, s1 + slot_off))
+                    st.slot_row = {s1: 0}
+                    st.defers = []          # fresh same-slot wipe
+                    st.mat_rows = 1
+                else:
+                    plan.append(("eqmat", mi, st.slot_row[s1],
+                                 st.slot_row[s2], False))
+                cols.extend((colA, colB))
+                k += 1
                 continue
-            planes = [[] for _ in q.projections]
-            for idx, o, sh in sum_refs:
-                planes[idx].append((host[o], sh))
-            results.append([combine_planes(p) for p in planes])
+            j1, j2 = s1 in st.slot_row, s2 in st.slot_row
+            if j1 and j2:
+                plan.append(("eqmat", mi, st.slot_row[s1], st.slot_row[s2],
+                             True))
+                cols.extend((colA, colB))
+                n_flags += 1
+                k += 1
+                continue
+            terminal = (k == len(q.joins) - 1)
+            if terminal:
+                if not j1 and not j2:
+                    # case-1 terminal wipes any existing component,
+                    # including its deferred attaches
+                    st.defers = []
+                    ex_kind, rows_slot, full_row = "rows", s1, 0
+                    fresh, col_full, col_fresh = s2, colA, colB
+                    fresh_col = c2
+                    nz = {s1: ("rows",), s2: "fresh"}
+                else:
+                    if j1:
+                        full, fresh, col_full, col_fresh = s1, s2, colA, colB
+                        fresh_col = c2
+                    else:
+                        full, fresh, col_full, col_fresh = s2, s1, colB, colA
+                        fresh_col = c1
+                    ex_kind, rows_slot, full_row = "mat", 0, st.slot_row[full]
+                    nz = {fresh: "fresh"}
+                    for slot, row in st.slot_row.items():
+                        nz[slot] = ("mat", row)
+                fresh_mult = cat.max_mult(q.slots[fresh], fresh_col)
+                mult_rows = tuple(d["mult_row"] for d in st.defers) or None
+                fresh_kind = "fresh" if mult_rows is None else "fresh_w"
+                defer_of = {d["slot"]: d for d in st.defers}
+                specs, pcols, defer_projs = [], [], []
+                for idx, p in enumerate(q.projections):
+                    spec = nz.get(p.slot)
+                    if spec is not None:
+                        planes = cat.proj_planes(q.slots[p.slot], p.col)
+                        vmaxes = cat.plane_maxes(q.slots[p.slot], p.col)
+                        for (plane, sh), vmax in zip(planes, vmaxes):
+                            if spec == "fresh":
+                                ch = channel_spec(fresh_mult, vmax)
+                                specs.append(("fresh", ch))
+                                sum_map.append((idx, (fresh_kind, ch), sh))
+                            else:
+                                specs.append(spec)
+                                sum_map.append((idx, "weighted", sh))
+                            pcols.append(plane)
+                    elif p.slot in defer_of:
+                        defer_projs.append((idx, p, defer_of[p.slot]))
+                plan.append(("terminal", mi, ex_kind,
+                             (fresh + slot_off, rows_slot + slot_off),
+                             full_row, tuple(specs), len(pcols),
+                             mult_rows))
+                cols.extend((col_full, col_fresh))
+                cols.extend(pcols)
+                n_flags += 1
+                for idx, p, d in defer_projs:
+                    # projection on a deferred slot d: sum over final rows
+                    # of T_d[lv_d] * terminal_count * prod(other mults)
+                    excl = tuple(e["mult_row"] for e in st.defers
+                                 if e is not d)
+                    d_mult = cat.max_mult(*d["key_ids"])
+                    planes = cat.proj_planes(q.slots[p.slot], p.col)
+                    vmaxes = cat.plane_maxes(q.slots[p.slot], p.col)
+                    for (plane, sh), vmax in zip(planes, vmaxes):
+                        ch = channel_spec(d_mult, vmax)
+                        plan.append(("project_defer", mi, full_row,
+                                     fresh + slot_off, d["lv_row"],
+                                     d["slot"] + slot_off, excl, ch))
+                        cols.extend((col_full, col_fresh,
+                                     d["col_join"], plane))
+                        sum_map.append((idx, ("fresh_w", ch), sh))
+                st.terminal = True
+                k += 1
+                continue
+            # deferred middle attach (any depth): no later join references
+            # this join's fresh slot -> fold it in as a multiplicity row
+            # (no expansion, no readback boundary, rows never multiply)
+            later = {s for jj in q.joins[k + 1:]
+                     for s in (jj.slot1, jj.slot2)}
+            if j1 or j2:
+                f = s2 if j1 else s1        # case 2: fresh side fixed
+            else:
+                # case 1: defer whichever side no later join references
+                f = (s2 if s2 not in later
+                     else (s1 if s1 not in later else None))
+            if f is not None and f not in later:
+                if j1 or j2:
+                    col_full = colA if j1 else colB
+                    col_fr = colB if j1 else colA
+                    src = ("mat", st.slot_row[s1 if j1 else s2])
+                    base_rows = st.mat_rows
+                else:
+                    # fresh pair: the non-deferred side becomes the
+                    # base component (wipes any prior one)
+                    base_slot = s1 if f == s2 else s2
+                    col_full = colA if f == s2 else colB
+                    col_fr = colB if f == s2 else colA
+                    src = ("rows", base_slot + slot_off)
+                    st.slot_row = {base_slot: 0}
+                    st.defers = []
+                    base_rows = 1
+                plan.append(("defer_attach", mi, f + slot_off, src))
+                cols.extend((col_full, col_fr))
+                n_flags += 1
+                st.defers.append({"slot": f, "mult_row": base_rows,
+                                  "lv_row": base_rows + 1,
+                                  "col_join": col_fr,
+                                  "key_ids": (q.slots[f],
+                                              c2 if f == s2 else c1)})
+                st.mat_rows = base_rows + 2
+                k += 1
+                continue
+            # non-deferable middle join: speculative expansion keeps the
+            # stage going (a device flag verifies; mis-speculation
+            # retries on the exact readback path)
+            spec = (self._spec_size(st, j)
+                    if (self.config.speculate_expansions and st.speculate)
+                    else None)
+            if spec is not None:
+                if not j1 and not j2:
+                    plan.append(("spec_pair", mi, s1 + slot_off,
+                                 s2 + slot_off, spec))
+                    cols.extend((colA, colB))
+                    st.slot_row = {s1: 0, s2: 1}
+                    st.defers = []
+                    st.mat_rows = 2
+                else:
+                    if j1:
+                        full, fresh, cF, cG = s1, s2, colA, colB
+                    else:
+                        full, fresh, cF, cG = s2, s1, colB, colA
+                    plan.append(("spec_attach", mi, st.slot_row[full],
+                                 fresh + slot_off, spec))
+                    cols.extend((cF, cG))
+                    st.slot_row[fresh] = st.mat_rows
+                    st.mat_rows += 1
+                n_flags += 1                    # the total==0 NULL flag
+                k += 1
+                continue
+            # exact path: the stage ends at the probe
+            if not j1 and not j2:
+                plan.append(("probe1", s1 + slot_off, s2 + slot_off))
+                cols.extend((colA, colB))
+                st.pending = ("pair", s1, s2)
+            else:
+                if j1:
+                    full, fresh, cF, cG = s1, s2, colA, colB
+                else:
+                    full, fresh, cF, cG = s2, s1, colB, colA
+                plan.append(("probe2", mi, st.slot_row[full],
+                             fresh + slot_off))
+                cols.extend((cF, cG))
+                st.pending = ("attach", fresh)
+            st.next_join = k + 1
+            return plan, cols, vals, sum_map, n_flags, False
+
+        st.next_join = k
+        st.pending = None
+        if not st.terminal:
+            # pipeline ended on a row-filter join (or no joins): sums over
+            # the materialized intermediate, weighted by the deferred
+            # multiplicity product when attaches were deferred
+            mult_rows = tuple(d["mult_row"] for d in st.defers)
+            defer_of = {d["slot"]: d for d in st.defers}
+            for idx, p in enumerate(q.projections):
+                row = st.slot_row.get(p.slot)
+                if row is not None:
+                    for plane, sh in cat.proj_planes(q.slots[p.slot],
+                                                     p.col):
+                        if mult_rows:
+                            plan.append(("project_w", mi, row, mult_rows))
+                            sum_map.append((idx, "weighted", sh))
+                        else:
+                            plan.append(("project", mi, row))
+                            sum_map.append((idx, "limb", sh))
+                        cols.append(plane)
+                elif p.slot in defer_of:
+                    d = defer_of[p.slot]
+                    excl = tuple(e["mult_row"] for e in st.defers
+                                 if e is not d)
+                    d_mult = cat.max_mult(*d["key_ids"])
+                    planes = cat.proj_planes(q.slots[p.slot], p.col)
+                    vmaxes = cat.plane_maxes(q.slots[p.slot], p.col)
+                    for (plane, sh), vmax in zip(planes, vmaxes):
+                        ch = channel_spec(d_mult, vmax)
+                        plan.append(("project_defer_nt", mi, d["lv_row"],
+                                     d["slot"] + slot_off, excl, ch))
+                        cols.extend((d["col_join"], plane))
+                        sum_map.append((idx, ("fresh_w", ch), sh))
+        return plan, cols, vals, sum_map, n_flags, True
+
+    _MAT_PLACEHOLDER_WIDTH = 1024
+
+    def _run_round(self, round_states, openings, vecs) -> None:
+        """Plan and run ONE stage covering every state of the round
+        (openings: {id(state): ("pair"/"attach", out_size)}).
+
+        The stage returns ONE packed int64 vector (appended to `vecs`)
+        holding every flag, spec flag, probe total and partial, plus
+        device state only for queries that emitted a probe (they continue
+        next round). States record (vec id, offset) references; nothing
+        is read back here."""
+        plan, cols, vals = [], [], []
+        live_in, cnt_in, mats_in, ic_in, probes_in = [], [], [], [], []
+        meta = []
+        # factorized queries first (stable): their ops land contiguous at
+        # the head of the plan and merge into ONE ftree_wave op. State
+        # order within a round is free — each state keeps its own refs.
+        ft, rest = [], []
+        for st in round_states:
+            if (self._ftree_eligible(st, openings.get(id(st)))
+                    and self._ftree_plan_for(st.q) is not None):
+                ft.append(st)
+            else:
+                rest.append(st)
+        for st in ft + rest:
+            slot_off = len(live_in)
+            live_in.extend(st.live_rows)
+            cnt_in.extend(st.live_cnt)
+            mi = len(mats_in)
+            mats_in.append(st.mat if st.mat is not None else
+                           self.catalog.mat_placeholder(
+                               self._MAT_PLACEHOLDER_WIDTH))
+            ic_in.append(st.icount)
+            opening = openings.get(id(st))
+            pi = None
+            if opening is not None:
+                pi = len(probes_in)
+                probes_in.append(st.probe)
+                st.probe = None
+            p, c, v, sum_map, n_flags, sums_done = self._plan_stage(
+                st, opening, slot_off, mi, pi)
+            emits_probe = bool(p) and p[-1][0] in ("probe1", "probe2")
+            n_specs = sum(1 for op in p
+                          if op[0] in ("spec_pair", "spec_attach"))
+            meta.append((st, slot_off, len(st.live_rows), mi, sum_map,
+                         sums_done, n_flags, emits_probe, n_specs))
+            plan.extend(p)
+            cols.extend(c)
+            vals.extend(v)
+        if not plan:
+            return
+        # the head run of ftree ops becomes one wave op: flags and sums
+        # come back in the same per-query order
+        nft = 0
+        while nft < len(plan) and plan[nft][0] == "ftree":
+            nft += 1
+        if nft:
+            head = plan[:nft]
+            plan = [("ftree_wave", tuple((op[1], op[2], op[3]) for op in head),
+                     sum(op[2] for op in head),
+                     sum(op[3] for op in head))] + plan[nft:]
+        # keep sets: only a query that emitted a probe needs its device
+        # state next round
+        keep_slots, keep_mats, keep_probes = [], [], []
+        for (st, slot_off, n_slots, mi, _sm, _sd, _nf, emits_probe,
+             _ns) in meta:
+            if emits_probe:
+                keep_slots.extend(range(slot_off, slot_off + n_slots))
+                keep_mats.append(mi)
+                keep_probes.append(len(keep_probes))
+        self.counters["dispatches"] += 1
+        packed, lr_k, lc_k, mats_k, ics_k, probes_k = run_stage(
+            tuple(live_in), tuple(cnt_in), tuple(mats_in), tuple(ic_in),
+            tuple(probes_in), tuple(cols), tuple(vals), tuple(plan),
+            self.catalog.domain, tuple(keep_slots), tuple(keep_mats),
+            tuple(keep_probes), self.config.ftree_scatter,
+            self.config.ftree_gather)
+        vid = len(vecs)
+        vecs.append(packed)
+        slot_new = dict(zip(keep_slots, zip(lr_k, lc_k)))
+        mat_new = dict(zip(keep_mats, zip(mats_k, ics_k)))
+        # packed layout: [flags | specs | probe totals | partials]
+        tot_flags = sum(m[6] for m in meta)
+        off_specs = tot_flags
+        off_totals = tot_flags + sum(m[8] for m in meta)
+        fi = si = ki = 0
+        poff = off_totals + sum(1 for m in meta if m[7])
+        for (st, slot_off, n_slots, mi, sum_map, sums_done, n_flags,
+             emits_probe, n_specs) in meta:
+            for i in range(n_slots):
+                upd = slot_new.get(slot_off + i)
+                if upd is not None:
+                    st.live_rows[i], st.live_cnt[i] = upd
+            upd = mat_new.get(mi)
+            if upd is not None:
+                st.mat, st.icount = upd
+            st.flag_refs.extend((vid, fi + j) for j in range(n_flags))
+            fi += n_flags
+            st.spec_refs.extend((vid, off_specs + si + j)
+                                for j in range(n_specs))
+            si += n_specs
+            if sums_done:
+                sums = [[] for _ in st.q.projections]
+                for (idx, kind, shift) in sum_map:
+                    size = part_shape(kind)
+                    sums[idx].append((kind, (vid, poff, size), shift))
+                    poff += size
+                st.sums.extend(sums)
+            elif sum_map:
+                raise AssertionError("partials planned before the last "
+                                     "stage of a query")
+            if emits_probe:
+                # the kept probe keeps its device total: the expansion's
+                # live count needs no upload
+                st.probe = probes_k[ki]
+                st.probe_total_ref = (vid, off_totals + ki)
+                ki += 1
+
+    def _read_vecs(self, vecs, need, host: Dict[int, list]) -> None:
+        """Copy packed vectors `need` (vec ids) into `host` with ONE
+        device-to-host copy."""
+        need = [v for v in need if v not in host]
+        if not need:
+            return
+        self.counters["readbacks"] += 1
+        flat = torch.cat([vecs[v] for v in need]).cpu().tolist()
+        off = 0
+        for v in need:
+            n = vecs[v].shape[0]
+            host[v] = flat[off:off + n]
+            off += n
+
+    def _run_batch_fused(self, queries: Sequence[Query],
+                         speculate: bool = True
+                         ) -> List[Optional[List[int]]]:
+        cat = self.catalog
+        states = []
+        for q in queries:
+            st = _QState(q, speculate=speculate)
+            st.icount = cat.scalar(0)
+            for s in range(len(q.slots)):
+                n = cat.relations[q.slots[s]].num_tuples
+                st.live_rows.append(cat.iota(cat.bucket(n)))
+                st.live_cnt.append(cat.scalar(n))
+            states.append(st)
+        vecs: List[torch.Tensor] = []
+        host: Dict[int, list] = {}
+        # the whole batch is one round (stage_group is not ported,
+        # ROADMAP.md item 11)
+        self._run_round(states, {}, vecs)
+        while True:
+            pend = [st for st in states if st.probe is not None
+                    and not st.null]
+            if not pend:
+                break
+            self._read_vecs(vecs, sorted({st.probe_total_ref[0]
+                                          for st in pend}), host)
+            openings = {}
+            live = []
+            for st in pend:
+                vid, off = st.probe_total_ref
+                total = host[vid][off]
+                if total < 0:
+                    raise JoinCapacityError(
+                        "a join exceeds 2**31-1 output pairs")
+                if total == 0:
+                    st.null = True
+                    st.probe = None
+                    st.pending = None
+                    continue
+                openings[id(st)] = (st.pending[0], cat.bucket(total))
+                live.append(st)
+            self._run_round(live, openings, vecs)
+        results = self._final_sweep_fused(states, vecs, host)
+        retry = [i for i, r in enumerate(results) if r is _RETRY]
+        if retry:
+            # mis-speculated expansions: rerun those queries on the exact
+            # readback path (speculation off => no further retries)
+            self.counters["spec_retries"] += len(retry)
+            redo = self._run_batch_fused([queries[i] for i in retry],
+                                         speculate=False)
+            for i, r in zip(retry, redo):
+                results[i] = r
         return results
+
+    def _final_sweep_fused(self, states: List[_QState], vecs,
+                           host: Dict[int, list]) -> list:
+        """Resolve every packed-vector reference with ONE readback and
+        combine the exact u64 sums on the host."""
+        self._read_vecs(vecs, range(len(vecs)), host)
+        results: List[object] = []
+        for st in states:
+            spec_ok = all(host[v][o] != 0 for v, o in st.spec_refs)
+            if st.null:
+                results.append(None if spec_ok else _RETRY)
+                continue
+            nulled = any(host[v][o] != 0 for v, o in st.flag_refs)
+            sums: List[int] = []
+            for s in st.sums:
+                total = 0
+                for kind, (vid, off, size), shift in s:
+                    total += _combine(kind, host[vid][off:off + size]) << shift
+                sums.append(total & U64_MASK)
+            if not spec_ok:
+                results.append(_RETRY)
+            else:
+                results.append(None if nulled else sums)
+        return results
+
+    # ---- dispatch, and the per-op path (sort backend / fusion off) ----
 
     def run_batch(self, queries: Sequence[Query]
                   ) -> List[Optional[List[int]]]:
-        """Per-query sums (None = NULL line) for one batch: the whole
-        batch is one round."""
+        """Per-query sums (None = NULL line) for one batch."""
         if not queries:
             return []
-        packed, refs = self._run_round(queries)
-        return self._final_sweep_fused(queries, packed, refs)
+        if self.join.kind == "dense" and self.config.fuse_stages:
+            return self._run_batch_fused(queries)
+        states = [self._init_and_filter(q) for q in queries]
+        max_joins = max((len(st.q.joins) for st in states), default=0)
+        for k in range(max_joins):
+            wave = []
+            for st in states:
+                if st.null or k >= len(st.q.joins):
+                    continue
+                if self._join_wave_probe(st, k):
+                    wave.append(st)
+            if wave:
+                # one stacked readback for the whole wave's totals
+                self.counters["readbacks"] += 1
+                totals = torch.stack([st.probe[4] for st in wave]
+                                     ).cpu().tolist()
+                for st, total in zip(wave, totals):
+                    self._join_wave_expand(st, k, total)
+        for st in states:
+            if not st.null:
+                self._projections(st)
+        return self._final_sweep(states)
+
+    def _final_sweep(self, states: List[_QState]
+                     ) -> List[Optional[List[int]]]:
+        """ONE readback of every flag and partial of the per-op path,
+        then the exact u64 combine on the host."""
+        flags = [f for st in states if not st.null for f in st.flags]
+        parts = [e[1] for st in states if not st.null
+                 for s in st.sums for e in s]
+        segs = ([torch.stack(flags).to(torch.int64)] if flags else []) + parts
+        host: list = []
+        if segs:
+            self.counters["readbacks"] += 1
+            host = torch.cat(segs).cpu().tolist()
+        results: List[Optional[List[int]]] = []
+        fi, pi = 0, len(flags)
+        for st in states:
+            if st.null:
+                results.append(None)
+                continue
+            nulled = any(host[fi:fi + len(st.flags)])
+            fi += len(st.flags)
+            sums: List[int] = []
+            for s in st.sums:
+                total = 0
+                for kind, arr, shift in s:
+                    m = arr.shape[0]
+                    total += _combine(kind, host[pi:pi + m]) << shift
+                    pi += m
+                sums.append(total & U64_MASK)
+            results.append(None if nulled else sums)
+        return results

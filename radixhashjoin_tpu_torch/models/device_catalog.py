@@ -54,6 +54,8 @@ class DeviceCatalog:
         self._max_mult: Dict[tuple, int] = {}
         self._bincounts: Dict[tuple, torch.Tensor] = {}
         self._iota: Dict[int, torch.Tensor] = {}
+        self._scalars: Dict[int, torch.Tensor] = {}
+        self._placeholders: Dict[int, torch.Tensor] = {}
         self._domain: Optional[int] = None
         # order-preserving global dictionary (only if any column is
         # wide); None => identity encoding (codes are the values)
@@ -248,12 +250,31 @@ class DeviceCatalog:
         return self._bincounts[key]
 
     def iota(self, size: int) -> torch.Tensor:
-        """Cached int32 arange(size) on the device: the per-query
-        executor's identity rowid set of a pristine slot."""
+        """Cached int32 arange(size) on the device: the identity rowid set
+        of a pristine slot."""
         if size not in self._iota:
             self._iota[size] = torch.arange(size, dtype=torch.int32,
                                             device=self.device)
         return self._iota[size]
+
+    def scalar(self, value: int) -> torch.Tensor:
+        """Cached 0-d int32 device tensor: the wave-batched path's live
+        counts stay on the device, and an upload (a host-to-device copy,
+        which synchronizes the host) happens once per value per catalog,
+        not once per run."""
+        v = int(value)
+        if v not in self._scalars:
+            self._scalars[v] = torch.tensor(v, dtype=torch.int32,
+                                            device=self.device)
+        return self._scalars[v]
+
+    def mat_placeholder(self, width: int) -> torch.Tensor:
+        """Cached all-zero (1, width) int32 matrix: the stage runner's
+        intermediate for a query that has none yet."""
+        if width not in self._placeholders:
+            self._placeholders[width] = torch.zeros(
+                (1, width), dtype=torch.int32, device=self.device)
+        return self._placeholders[width]
 
     def bucket(self, n: int) -> int:
         return bucket_size(n, self.config.min_pad, self.config.pad_base)

@@ -5,12 +5,16 @@ Relations load once (storage.py), every query runs on the device the
 caller names, and results print in input order with the reference
 binary's stdin/stdout contract. Two executors share one DeviceCatalog:
 
-* batch_execution=True (the default): the wave-batched BatchExecutor,
-  one factorized wave per batch (models/batch.py);
+* batch_execution=True (the default): the wave-batched BatchExecutor
+  (models/batch.py), which answers every query shape in the same batch:
+  a factorized wave for tree-shaped queries, materialized stage ops for
+  the rest;
 * batch_execution=False: the per-query TorchExecutor
-  (models/executor.py), which answers every query shape with the
-  materializing sort join. Its catalog is built directly, so it also
-  serves catalogs whose domain exceeds max_dense_domain.
+  (models/executor.py), the materializing sort join one query at a
+  time.
+
+Both paths run each query through `_plan` first: the stats-driven join
+reordering of models/planner.py when enable_join_reordering is set.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from ..workload import Query, parse_init_stream, parse_work_stream
 from .batch import BatchExecutor
 from .device_catalog import DeviceCatalog
 from .executor import TorchExecutor
+from .planner import reorder_joins
 
 
 class Engine:
@@ -57,7 +62,14 @@ class Engine:
     def execute(self, q: Query) -> Optional[List[int]]:
         """One query through the per-query executor: projection sums, or
         None for a NULL line."""
-        return self.executor.execute(q)
+        return self.executor.execute(self._plan(q))
+
+    def _plan(self, q: Query) -> Query:
+        """Stats-driven join reordering (models/planner.py); off by
+        default for written-order parity."""
+        if self.config.enable_join_reordering:
+            return reorder_joins(q, self.relations)
+        return q
 
     def run_batch_raw(self, batch: Sequence[Query]
                       ) -> List[Optional[List[int]]]:
@@ -65,7 +77,7 @@ class Engine:
         line), unformatted."""
         if self.batch_executor is None:
             return [self.execute(q) for q in batch]
-        return self.batch_executor.run_batch(list(batch))
+        return self.batch_executor.run_batch([self._plan(q) for q in batch])
 
     def run_batch(self, batch: Sequence[Query]) -> List[str]:
         out = self.run_batch_raw(batch)

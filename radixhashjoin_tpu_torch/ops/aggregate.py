@@ -1,5 +1,5 @@
-"""SUM projection over the per-query executor's final rows (counterpart:
-radixhashjoin_tpu/ops/aggregate.py:38 sum_column_over_rows).
+"""SUM projection over materialized rows (counterpart:
+radixhashjoin_tpu/ops/aggregate.py:19-41).
 
 The reference splits every value into 16-bit limbs because TPU lanes
 are 32-bit (aggregate.py:19-28). The port folds in int64, as the
@@ -17,10 +17,22 @@ from ..utils.limbs import U64_MASK
 from .filter import gather_clamped
 
 
+def _gather_partials(col: torch.Tensor, rows: torch.Tensor, count
+                     ) -> torch.Tensor:
+    """int64[1]: sum of col[rows[:count]], on the device."""
+    idx = torch.arange(rows.shape[0], dtype=torch.int32, device=rows.device)
+    vals = torch.where(idx < count, gather_clamped(col, rows), 0)
+    return vals.sum(dtype=torch.int64).reshape(1)
+
+
+def gather_partials_matrix(col: torch.Tensor, mat: torch.Tensor,
+                           row_idx: int, count) -> torch.Tensor:
+    """_gather_partials with the rows taken from an intermediate-matrix
+    row (the wave-batched path's non-terminal projection)."""
+    return _gather_partials(col, mat[row_idx], count)
+
+
 def sum_column_over_rows(col: torch.Tensor, rows: torch.Tensor, count
                          ) -> int:
     """Exact u64 sum of col[rows[:count]] (device reduce, one readback)."""
-    n = rows.shape[0]
-    idx = torch.arange(n, dtype=torch.int32, device=rows.device)
-    vals = torch.where(idx < count, gather_clamped(col, rows), 0)
-    return int(vals.sum(dtype=torch.int64)) & U64_MASK
+    return int(_gather_partials(col, rows, count)) & U64_MASK

@@ -5,7 +5,9 @@ An inclusive scan of the keep mask gives each survivor its destination
 and one scatter writes them; the output keeps the input's padded length
 and the live count shrinks. Dropped elements aim at position n, a spare
 slot past the end that is cut off (a CUDA scatter with an out-of-range
-index device-asserts, so nothing may aim outside the buffer).
+index device-asserts, so nothing may aim outside the buffer). The same
+scatter compacts the wave-batched path's (k, P) intermediate matrix
+column-wise.
 """
 
 from __future__ import annotations
@@ -27,11 +29,14 @@ def compact_mask_positions(mask: torch.Tensor
 
 
 def compact(arr: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """Scatter arr to the positions from compact_mask_positions; every
-    other lane of the result is 0, and a position outside [0, n) drops
-    its element."""
-    n = arr.shape[0]
+    """Scatter arr along its last axis to the positions from
+    compact_mask_positions; every other lane of the result is 0, and a
+    position outside [0, n) drops its element. A (k, P) intermediate
+    matrix compacts all k rows by one mask, like the reference's
+    `zeros_like(mat).at[:, pos].set(mat, mode="drop")` (ops/chain.py:36)."""
+    n = arr.shape[-1]
     pos = torch.where((pos >= 0) & (pos < n), pos, n)
-    out = torch.zeros(n + 1, dtype=arr.dtype, device=arr.device)
-    out.index_copy_(0, pos.long(), arr)
-    return out[:n]
+    out = torch.zeros(*arr.shape[:-1], n + 1, dtype=arr.dtype,
+                      device=arr.device)
+    out.index_copy_(arr.dim() - 1, pos.long(), arr)
+    return out[..., :n]

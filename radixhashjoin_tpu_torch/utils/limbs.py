@@ -16,6 +16,12 @@ each sum back as `int(x) & (2**64 - 1)`.
 One wave folds all of its projections in one segmented pass (one
 multiply, one prefix sum, one boundary gather), not one reduction per
 projection.
+
+The materialized fallback's weights (a match count times the deferred
+multiplicities, models/batch.py) are int64 products: where the
+reference's int32 product wraps past 2**31, the port's does not. Every
+step is a ring operation mod 2**64 (int64 multiply and add wrap in two's
+complement), so the folded sum is the exact u64 SUM for any weights.
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ def fold_segments(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
     """int64[len(pairs)]: per (plane, weight) pair, sum(plane * weight)
     mod 2**64 (as a two's-complement int64). Segments lie back to back;
     a segment's sum is the difference of the wrapped prefix sums at its
-    ends, exact mod 2**64 for any number of rows."""
+    ends, exact mod 2**64 for any number of rows. The ends are picked as
+    views and stacked: no host-to-device copy, so no host sync."""
     if not pairs:
         return torch.zeros(0, dtype=torch.int64, device=device)
     prod = torch.cat([p.to(torch.int64) for p, _w in pairs])
@@ -42,8 +49,18 @@ def fold_segments(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
         ends.append(ends[-1] + p.shape[0])
     cs = torch.cat([torch.zeros(1, dtype=torch.int64, device=device),
                     torch.cumsum(prod, 0)])
-    bounds = torch.tensor(ends, dtype=torch.int64, device=device)
-    return cs.index_select(0, bounds[1:]) - cs.index_select(0, bounds[:-1])
+    at = torch.stack([cs[e] for e in ends])
+    return at[1:] - at[:-1]
+
+
+def weighted_partials(vals: torch.Tensor, weights: torch.Tensor, count
+                      ) -> torch.Tensor:
+    """int64[1]: exact u64 sum(vals * weights) over the live prefix
+    (counterpart: radixhashjoin_tpu/utils/limbs.py:118, whose (5, 2)
+    limb channels this one wrapped int64 replaces)."""
+    idx = torch.arange(vals.shape[0], dtype=torch.int32, device=vals.device)
+    return fold_segments([(torch.where(idx < count, vals, 0), weights)],
+                         vals.device)
 
 
 def combine_planes(parts: Sequence[Tuple[int, int]]) -> int:
@@ -54,3 +71,11 @@ def combine_planes(parts: Sequence[Tuple[int, int]]) -> int:
     for s, shift in parts:
         total += (int(s) & U64_MASK) << shift
     return total & U64_MASK
+
+
+def combine_channels(seg: Sequence[int], channels) -> int:
+    """Exact u64 of a fresh-side T-table sum (ops/terminal.py): one
+    int64 per channel, each shifted by its channel's bit offset
+    (counterpart: combine_fresh_partials / combine_fresh_w_partials)."""
+    return combine_planes([(s, shift)
+                           for s, (shift, _bits) in zip(seg, channels)])

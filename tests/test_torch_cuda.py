@@ -1,7 +1,10 @@
 """Card-only tests of the port: the hand-written CUDA kernels against
 their plain PyTorch versions, the partition and radix sort against
 torch.sort(stable=True), the engine on a CUDA device against the port's
-oracle, and the per-query executor on CUDA against its CPU run. Marked `cuda`; they skip without a card. They import
+oracle, the per-query executor and the wave-batched materialized
+fallback (terminal joins, the dense pair-set test, deferred attaches,
+every query shape through the batch path) on CUDA against their CPU
+runs. Marked `cuda`; they skip without a card. They import
 nothing of jax or of the JAX package, so they also run where jax is
 absent:
 
@@ -224,3 +227,100 @@ def test_per_query_executor_cuda_matches_cpu(dev, seed):
     oracle = OracleExecutor(rels)
     assert got == [format_result(oracle.execute(q), len(q.projections))
                    for q in queries]
+
+
+# ---- the wave-batched materialized fallback on the card ----
+
+def _fallback_operands(seed, dev):
+    """Operands of the fallback's dense ops, made on the host from a seed:
+    (cpu tensors, the same on `dev`)."""
+    rng = np.random.default_rng(seed)
+    host = {
+        "col_full": rng.integers(0, 40, 300).astype(np.int32),
+        "col_fresh": rng.integers(0, 40, 200).astype(np.int32),
+        "proj": rng.integers(0, 2**31 - 1, 200).astype(np.int32),
+        "mat": rng.integers(0, 300, (2, 4096)).astype(np.int32),
+        "fresh_rows": rng.integers(0, 200, 2048).astype(np.int32),
+        "rows": rng.integers(0, 300, 4096).astype(np.int32),
+        "mult": rng.integers(0, 1 << 20, 4096).astype(np.int64),
+    }
+    cpu = {k: torch.from_numpy(v) for k, v in host.items()}
+    return cpu, {k: v.to(dev) for k, v in cpu.items()}
+
+
+@pytest.mark.parametrize("ex_kind,with_mult", [("mat", False),
+                                               ("mat", True),
+                                               ("rows", False)])
+def test_terminal_join_cuda_matches_cpu(dev, ex_kind, with_mult):
+    from radixhashjoin_tpu_torch.ops.terminal import (
+        channel_spec, terminal_join_and_project)
+    ch = channel_spec(64, 2**31 - 1)          # several T channels
+    specs = ((("fresh", ch), ("mat", 0)) if ex_kind == "mat"
+             else (("fresh", ch), ("rows",)))
+    outs = []
+    before = dict(kernels.LAUNCHES)
+    for ops in _fallback_operands(7, dev):
+        src = ops["mat"] if ex_kind == "mat" else ops["rows"]
+        empty, sums = terminal_join_and_project(
+            src, 3000, ops["fresh_rows"], 1900, ops["col_full"],
+            ops["col_fresh"], (ops["proj"], ops["col_full"]),
+            (ex_kind, 1, specs), 1024,
+            mult=ops["mult"] if with_mult else None)
+        outs.append((bool(empty), [s.cpu() for s in sums]))
+    assert outs[0][0] == outs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(outs[0][1], outs[1][1]))
+    assert all(kernels.LAUNCHES[k] > before[k] for k in ("bincount",
+                                                         "gather"))
+
+
+@pytest.mark.parametrize("count", [0, 1, 3000, 4096])
+def test_dense_any_common_cuda_matches_cpu(dev, count):
+    from radixhashjoin_tpu_torch.ops.join_dense import dense_any_common
+    rng = np.random.default_rng(count)
+    a = rng.integers(0, 5000, 4096).astype(np.int32)
+    b = rng.integers(3000, 9000, 4096).astype(np.int32)
+    want = dense_any_common(torch.from_numpy(a), torch.from_numpy(b), count,
+                            16384)
+    got = dense_any_common(torch.from_numpy(a).to(dev),
+                           torch.from_numpy(b).to(dev), count, 16384)
+    assert bool(got) == bool(want)
+
+
+@pytest.mark.parametrize("src", [("rows", 0), ("mat", 1)])
+def test_defer_attach_cuda_matches_cpu(dev, src):
+    """A deferred attach through the stage runner: the compacted matrix
+    (base rows, mult row, lv row), its count and its NULL flag."""
+    from radixhashjoin_tpu_torch.ops.stage import run_stage
+    results = []
+    for ops in _fallback_operands(9, dev):
+        d = ops["rows"].device
+        live = (ops["rows"], ops["fresh_rows"])
+        cnts = tuple(torch.tensor(n, dtype=torch.int32, device=d)
+                     for n in (3500, 1800))
+        plan = (("defer_attach", 0, 1, src),)
+        out = run_stage(live, cnts, (ops["mat"],),
+                        (torch.tensor(3900, dtype=torch.int32, device=d),),
+                        (), (ops["col_full"], ops["col_fresh"]), (), plan,
+                        1024, keep_mats=(0,))
+        results.append([out[0].cpu(), out[3][0].cpu(), out[4][0].cpu()])
+    assert all(torch.equal(a, b) for a, b in zip(*results))
+
+
+@pytest.mark.parametrize("cfg", [{}, {"factorized": False},
+                                 {"join_backend": "sort"},
+                                 {"fuse_stages": False}])
+def test_batch_fallback_cuda_matches_cpu(dev, cfg):
+    """Every query shape through the batch path on the card: the same
+    lines as on the CPU and as the oracle, no query on the per-query
+    executor."""
+    rng = np.random.default_rng(400)
+    rels, _ = _tree_workload(rng)
+    rels, queries = _general_queries(rng, rels, n_queries=16)
+    eng = Engine(rels, EngineConfig(**cfg), device=dev)
+    got = eng.run_batch(queries)
+    assert got == Engine(rels, EngineConfig(**cfg),
+                         device="cpu").run_batch(queries)
+    oracle = OracleExecutor(rels)
+    assert got == [format_result(oracle.execute(q), len(q.projections))
+                   for q in queries]
+    assert eng.executor.counters["queries"] == 0

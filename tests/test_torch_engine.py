@@ -8,9 +8,12 @@ its own objects: its Relation over the same columns, and each query
 through its own parser from the query's text. Covers random
 tree queries, stars, chains, wiped-component NULLs, every factorizing
 case of tests/test_case3_rewrite.py, and wide u64 values with sums past
-2**40 and 2**64. Also: the CLI as a subprocess, the port's independence
-from jax, and the NotImplementedError surface of unported paths (the
-per-query path has its own file, tests/test_torch_executor.py).
+2**40 and 2**64. Also: the queries and settings the materialized
+fallback answers inside the batch path (tests/test_torch_batch_fallback.py
+holds its operators and configs against JAX), the CLI as a subprocess,
+the port's independence from jax, and the NotImplementedError surface of
+what is still unported (the per-query path has its own file,
+tests/test_torch_executor.py).
 """
 
 import inspect
@@ -213,22 +216,44 @@ def test_wave_grouping_agrees():
     assert eng.batch_executor.counters["readbacks"] == 1 + len(queries)
 
 
-# ---- unported paths raise ----
+# ---- every query shape through the batch path ----
 
 @pytest.mark.parametrize("ci", [i for i, c in enumerate(CASE3) if not c[2]])
 def test_non_factorizable_query_raises(ci):
+    """A CASE3 query the tree planner leaves to the materialized fallback
+    runs in the batch path itself (nothing raises any more): port == JAX
+    == oracle, no factorized query, no per-query executor."""
     rels, q, _ = CASE3[ci]
-    rels, (q,) = _to_port(rels, [q])
-    eng = Engine(rels, EngineConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.run_batch([q])
+    prels, (pq,) = _to_port(rels, [q])
+    eng = Engine(prels, EngineConfig(), device="cpu")
+    ref = JaxBatch(rels, JaxConfig())
+    want = format_result(OracleExecutor(rels).execute(q), len(q.projections))
+    assert eng.run_batch([pq]) == [want]
+    assert [format_result(r, len(q.projections))
+            for r in ref.run_batch([q])] == [want]
+    assert eng.batch_executor.counters == ref.counters
+    assert eng.batch_executor.counters["ftree_queries"] == 0
+    assert eng.executor.counters["queries"] == 0
 
 
 def test_no_join_query_raises():
-    eng = _port_engine([_u64([1, 2, 3])])
-    q = tworkload.parse_query("0|0.0<3|0.0")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.run_batch([q])
+    """Queries without joins run as filter + projection stage ops in the
+    batch path (the name is from when they raised)."""
+    rels = [_u64([1, 2, 3], [10, 20, 30])]
+    queries = [Query([0], [], [FilterPred(0, 0, "<", 3)],
+                     [Projection(0, 1)]),
+               Query([0], [], [FilterPred(0, 0, ">", 3)],
+                     [Projection(0, 0)]),
+               Query([0, 0], [], [], [Projection(1, 1)])]
+    prels, pqueries = _to_port(rels, queries)
+    eng = Engine(prels, EngineConfig(), device="cpu")
+    oracle = OracleExecutor(rels)
+    want = [format_result(oracle.execute(q), len(q.projections))
+            for q in queries]
+    assert want == ["0", "NULL", "0"]       # a never-joined slot sums 0
+    assert eng.run_batch(pqueries) == want
+    assert eng.batch_executor.counters["readbacks"] == 1
+    assert eng.executor.counters["queries"] == 0
 
 
 def test_huge_node_raises(monkeypatch):
@@ -241,15 +266,41 @@ def test_huge_node_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mesh_devices", 2), ("enable_join_reordering", True),
-    ("force_oracle", True), ("factorized", False), ("fuse_stages", False),
-    ("join_backend", "sort"), ("ftree_window_sort", "on"),
-    ("ftree_scatter", "mxu"), ("ftree_gather", "xla"),
-    ("max_dense_domain", 512), ("ftree_wave", False), ("stage_group", 3),
+    ("mesh_devices", 2), ("force_oracle", True), ("profile", True),
+    ("ftree_window_sort", "on"), ("ftree_scatter", "mxu"),
+    ("ftree_gather", "xla"), ("ftree_wave", False), ("stage_group", 3),
 ])
 def test_unported_config_raises(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port_engine([_u64([1, 2])], EngineConfig(**{field: value}))
+
+
+@pytest.mark.parametrize("field,value", [
+    ("enable_join_reordering", True), ("factorized", False),
+    ("fuse_stages", False), ("join_backend", "sort"),
+    ("max_dense_domain", 512),
+])
+def test_lifted_config_runs(field, value):
+    """Settings that raised before the materialized fallback was ported
+    now run the batch path and match the JAX engine and the oracle."""
+    rels, queries = _fuzz(0)
+    prels, pqueries = _to_port(rels, queries)
+    eng = Engine(prels, EngineConfig(**{field: value}), device="cpu")
+    got = eng.run_batch(pqueries)
+    ref = JaxBatch(rels, JaxConfig(**{field: value}))
+    planned = queries
+    if field == "enable_join_reordering":
+        from radixhashjoin_tpu.models.planner import reorder_joins
+        planned = [reorder_joins(q, rels) for q in queries]
+    oracle = OracleExecutor(rels)
+    want = [format_result(oracle.execute(q), len(q.projections))
+            for q in planned]
+    assert got == want
+    assert [format_result(r, len(q.projections))
+            for r, q in zip(ref.run_batch(planned), queries)] == want
+    assert eng.batch_executor.counters == ref.counters
+    if field == "max_dense_domain":
+        assert eng.batch_executor.join.kind == "sort"
 
 
 def test_batch_execution_false_runs():

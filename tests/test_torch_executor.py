@@ -7,7 +7,8 @@ tests/test_fuzz.py, every case of tests/test_case3_rewrite.py (those the
 wave-batched path plans and those it does not), cyclic, same-slot and
 no-join queries, NULL lines, wide u64 values (dictionary codes), a
 catalog whose domain exceeds max_dense_domain, and the 2**31 - 1 pair
-cap. The default batch path keeps raising for what it does not plan.
+cap. The default batch path answers the same queries with its own
+materialized fallback, and the two paths agree.
 """
 
 import os
@@ -158,26 +159,34 @@ def test_wide_u64_dictionary_catalog():
 
 
 def test_domain_beyond_max_dense_domain():
-    """The per-query path builds its catalog directly, so it serves a
-    catalog the wave-batched path refuses."""
+    """The per-query path builds its catalog directly; the batch path
+    serves the same catalog with its sort backend. Both agree."""
     rng = np.random.default_rng(3)
     rels = [Relation([rng.integers(0, 1 << 12, 500).astype(np.uint64)
                       for _ in range(2)]) for _ in range(3)]
     queries = [_random_query(rng, rels) for _ in range(6)]
     cfg = EngineConfig(batch_execution=False, max_dense_domain=512)
-    _agree(rels, queries, cfg)
-    prels, _ = _to_port(rels)
+    got = _agree(rels, queries, cfg)
+    prels, pqueries = _to_port(rels, queries)
     assert Engine(prels, cfg, device="cpu").executor.catalog.domain > 512
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(prels, EngineConfig(max_dense_domain=512), device="cpu")
+    batch = Engine(prels, EngineConfig(max_dense_domain=512), device="cpu")
+    assert batch.batch_executor.join.kind == "sort"
+    assert batch.run_batch(pqueries) == got
 
 
 def test_sort_backend_only_per_query():
-    prels, _ = _to_port([_u64([1, 2])])
-    Engine(prels, EngineConfig(batch_execution=False, join_backend="sort"),
-           device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(prels, EngineConfig(join_backend="sort"), device="cpu")
+    """join_backend="sort" runs on both paths (the name is from when the
+    batch path refused it), with the same lines."""
+    rels = _shapes_catalog()
+    queries = list(SHAPES.values())
+    prels, pqueries = _to_port(rels, queries)
+    per_query = Engine(prels, EngineConfig(batch_execution=False,
+                                           join_backend="sort"),
+                       device="cpu").run_batch(pqueries)
+    batch = Engine(prels, EngineConfig(join_backend="sort"), device="cpu")
+    assert batch.run_batch(pqueries) == per_query == _oracle_lines(rels,
+                                                                   queries)
+    assert batch.executor.counters["queries"] == 0
 
 
 def test_pair_cap_raises_like_jax():
@@ -239,12 +248,16 @@ def test_cli_no_batch_matches_oracle(tmp_path):
 
 
 def test_cli_batch_mode_still_raises_for_cycles(tmp_path):
-    """Without --no-batch the wave-batched path refuses a query it
-    cannot plan, naming ROADMAP, and prints no result line."""
+    """Without --no-batch the wave-batched path answers a cycle it cannot
+    factorize with its materialized fallback (the name is from when it
+    refused): the same lines as --no-batch and the oracle."""
     rels = _shapes_catalog()
-    proc = _cli(["--device", "cpu"], _stream(_write_catalog(tmp_path, rels),
-                                             [SHAPES["triangle"]]))
-    assert proc.returncode != 0
-    assert "NotImplementedError" in proc.stderr
-    assert "ROADMAP" in proc.stderr
-    assert proc.stdout == ""
+    queries = [SHAPES["triangle"], SHAPES["no_join"], SHAPES["case1_wipe"]]
+    stream = _stream(_write_catalog(tmp_path, rels), queries)
+    proc = _cli(["--device", "cpu"], stream)
+    assert proc.returncode == 0, proc.stderr
+    want = _oracle_lines(rels, queries)
+    assert proc.stdout.splitlines() == want
+    proc = _cli(["--device", "cpu", "--no-batch"], stream)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines() == want

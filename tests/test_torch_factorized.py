@@ -139,7 +139,7 @@ def test_planner_ops_identical(ci):
         jplan, jcols, jvals, jfsum, jnf, jnodes = b
         assert plan == jplan                  # identical op tuples
         assert (nf, nodes) == (jnf, jnodes)
-        assert fsum == [(i, sh) for (i, _kind, sh) in jfsum]
+        assert fsum == jfsum                  # (projection, kind, shift)
         assert len(cols) == len(jcols)
         for c, jc in zip(cols, jcols):
             np.testing.assert_array_equal(_np(c), _np(jc))
