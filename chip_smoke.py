@@ -10,8 +10,12 @@ Phases (any failure raises and exits non-zero; nothing is swallowed):
      with nvcc, one process per source, started together;
   2. each kernel against its plain PyTorch version on the card, at the
      shapes its path gives it: element-exact (torch.equal), timed with
-     CUDA events (warm-up, then 20 launches of each); the partition and
-     the 18-bit radix sort built on the rank kernel against
+     CUDA events (warm-up, then 20 launches of each) beside one PyTorch
+     library call computing the same function (where one exists) and its
+     bound (bytes moved over 3.35 TB/s); the build and lookup through
+     bench_tables (Zipf and uniform 2^26-row builds, shared-memory-size
+     tables, lookups into 2^20-, 2^18-, 48K- and 1024-entry tables); the
+     partition and the 18-bit radix sort built on the rank kernel against
      torch.sort(stable=True);
   3. the CLI on a synthetic catalog shaped like the contest's `small`
      set (14 relations, ~270K uint64 tuples, 50 tree-shaped queries in
@@ -98,105 +102,48 @@ def _max_abs_err(a, b) -> int:
 
 # ---- phase 2: kernels vs their plain versions ----
 
-def _zipf_keys(gen, n, n_keys, device, s=1.1):
-    """Inverse-CDF power law over [0, n_keys), the scripts/bench_scale.py
-    generator: rank ~ u^(-1/(s-1)), clipped to the last key."""
-    import torch
-    u = torch.rand(n, generator=gen, device=device, dtype=torch.float32)
-    r = torch.clamp(u.clamp_min(1e-30) ** (-1.0 / (s - 1.0)),
-                    max=n_keys - 1)
-    return r.to(torch.int32)
-
-
 def phase_kernels(dev):
+    """The build and lookup at the main path's shapes through
+    bench_tables (exact, then kernel, plain, library and bound), a few
+    untimed edge shapes, then the radix kernels."""
     import torch
-    from radixhashjoin_tpu_torch import kernels
+    from radixhashjoin_tpu_torch import bench_tables, kernels
     from radixhashjoin_tpu_torch.ops.tables import (table_gather_torch,
                                                     weighted_bincount_torch)
-    gen = torch.Generator(device=dev).manual_seed(0)
     errs = {"bincount": 0, "gather": 0}
+    timed = {}
+    for row in bench_tables.run(dev, out=None):
+        errs[row["kernel"]] = max(errs[row["kernel"]], row["max_abs_err"])
+        if row["main"]:
+            timed[row["kernel"]] = row
+        print(json.dumps(row))
+
+    gen = torch.Generator(device=dev).manual_seed(0)
 
     def check(name, got, want, shape):
+        torch.cuda.synchronize()
         err = _max_abs_err(got, want)
         errs[name] = max(errs[name], err)
         if not torch.equal(got, want):
             raise AssertionError(f"{name} {shape}: kernel != plain "
                                  f"(max abs err {err})")
+        print(json.dumps({"kernel": name, "case": shape, "exact": True}))
 
-    def bincount_case(label, idx, w, n_bins, timed):
-        got = kernels.weighted_bincount_cuda(idx, w, n_bins)
-        want = weighted_bincount_torch(idx, w, n_bins)
-        torch.cuda.synchronize()
-        check("bincount", got, want, label)
-        row = {"kernel": "bincount", "case": label, "exact": True}
-        if timed:
-            row["ms"] = _time_ms(
-                lambda: kernels.weighted_bincount_cuda(idx, w, n_bins))
-            row["plain_ms"] = _time_ms(
-                lambda: weighted_bincount_torch(idx, w, n_bins))
-        print(json.dumps(row))
-        return row
-
-    # main-path shape: a message-table build at 2^26 Zipf-skewed rows
-    # into 2^20 bins, ~10% masked rows on the sentinel, a few -1s;
-    # weights < 100 keep the hot bin (~25% of rows) below 2^31
-    n, bins = 1 << 26, 1 << 20
-    idx = _zipf_keys(gen, n, bins, dev)
-    sent = torch.rand(n, generator=gen, device=dev) < 0.1
-    idx = torch.where(sent, bins, idx)
-    idx[:: 1 << 22] = -1
-    w = torch.randint(0, 100, (n,), generator=gen, device=dev,
-                      dtype=torch.int32)
-    main_b = bincount_case("zipf1.1 n=2^26 bins=2^20", idx, w, bins, True)
-    # the same build with uniform keys: the difference is hot-key cost
-    idx = torch.randint(0, bins, (n,), generator=gen, device=dev,
-                        dtype=torch.int32)
-    bincount_case("uniform n=2^26 bins=2^20", idx, w, bins, True)
-    del idx, w, sent
-    n, bins = 1 << 24, 1024
-    idx = torch.randint(0, bins, (n,), generator=gen, device=dev,
-                        dtype=torch.int32)
-    w = torch.randint(0, 1000, (n,), generator=gen, device=dev,
-                      dtype=torch.int32)
-    bincount_case("uniform n=2^24 bins=1024", idx, w, bins, True)
     for n, bins in ((5000, 700), (1, 700), (0, 700)):
         idx = torch.randint(0, bins + 1, (n,), generator=gen, device=dev,
                             dtype=torch.int32)
         w = torch.randint(0, 1 << 20, (n,), generator=gen, device=dev,
                           dtype=torch.int32)
-        bincount_case(f"n={n} bins={bins}", idx, w, bins, False)
-
-    def gather_case(label, table, keys, timed):
-        got = kernels.table_gather_cuda(table, keys)
-        want = table_gather_torch(table, keys)
-        torch.cuda.synchronize()
-        check("gather", got, want, label)
-        row = {"kernel": "gather", "case": label, "exact": True}
-        if timed:
-            row["ms"] = _time_ms(lambda: kernels.table_gather_cuda(table,
-                                                                   keys))
-            row["plain_ms"] = _time_ms(lambda: table_gather_torch(table,
-                                                                  keys))
-        print(json.dumps(row))
-        return row
-
-    bins = 1 << 20
-    table = torch.randint(-2**31, 2**31 - 1, (bins,), generator=gen,
+        check("bincount", kernels.weighted_bincount_cuda(idx, w, bins),
+              weighted_bincount_torch(idx, w, bins), f"n={n} bins={bins}")
+    table = torch.randint(-2**31, 2**31 - 1, (1000,), generator=gen,
                           device=dev, dtype=torch.int32)
-    keys = torch.randint(-1000, bins + 1000, (1 << 26,), generator=gen,
-                         device=dev, dtype=torch.int32)
-    main_g = gather_case("unsorted n=2^26 bins=2^20", table, keys, True)
-    keys = torch.sort(torch.randint(0, bins, (1 << 24,), generator=gen,
-                                    device=dev, dtype=torch.int32)).values
-    gather_case("sorted n=2^24 bins=2^20", table, keys, True)
-    del keys
     for n, b in ((1, 77), (1001, 77), (4097, 1000), (0, 77)):
         t = table[:b].contiguous()
         k = torch.randint(-3, b + 3, (n,), generator=gen, device=dev,
                           dtype=torch.int32)
-        gather_case(f"n={n} bins={b}", t, k, False)
-    del table
-    timed = {"bincount": main_b, "gather": main_g}
+        check("gather", kernels.table_gather_cuda(t, k),
+              table_gather_torch(t, k), f"n={n} bins={b}")
     timed.update(_phase_radix_kernels(dev, gen, errs))
     return timed, errs
 
@@ -207,6 +154,7 @@ def _phase_radix_kernels(dev, gen, errs):
     against torch.sort(stable=True)."""
     import torch
     from radixhashjoin_tpu_torch import kernels
+    from radixhashjoin_tpu_torch.bench_tables import bound_ms
     from radixhashjoin_tpu_torch.ops.partition import (partition_order,
                                                        radix_sort_order,
                                                        rank_and_hist_torch)
@@ -214,7 +162,10 @@ def _phase_radix_kernels(dev, gen, errs):
     errs.update({"radix_hist": 0, "rank_hist": 0})
     rows = {}
 
-    def report(name, label, pairs, kernel_fn, plain_fn, profile=False):
+    def report(name, label, pairs, kernel_fn, plain_fn, profile=False,
+               library=None, n_bytes=None):
+        """`library`: (call, fn) or (None, reason); `n_bytes`: what the
+        function must move, for bound_ms."""
         err = max(_max_abs_err(g, w) for g, w in pairs)
         errs[name] = max(errs.get(name, 0), err)
         if not all(torch.equal(g, w) for g, w in pairs):
@@ -222,6 +173,13 @@ def _phase_radix_kernels(dev, gen, errs):
                                  f"(max abs err {err})")
         row = {"kernel": name, "case": label, "exact": True,
                "ms": _time_ms(kernel_fn), "plain_ms": _time_ms(plain_fn)}
+        if library is not None:
+            call, fn = library
+            row["library_call"] = call if call else fn
+            row["library_ms"] = _time_ms(fn) if call else None
+        if n_bytes is not None:
+            row["bound_ms"] = bound_ms(n_bytes)
+            row["bound_by"] = "bytes"
         if profile:
             row["device_profile"] = _profile(kernel_fn, top=6)
         print(json.dumps(row))
@@ -236,12 +194,16 @@ def _phase_radix_kernels(dev, gen, errs):
     got = kernels.radix_histogram_cuda(vals, count, bins)
     want = radix_histogram_torch(vals, count, bins)
     torch.cuda.synchronize()
+    masked = vals[:count] & (bins - 1)          # the yardstick's input
     rows["radix_hist"] = report(
         "radix_hist", f"n=2^26 count=2^26-12345 bins={bins}",
         [(got, want)],
         lambda: kernels.radix_histogram_cuda(vals, count, bins),
-        lambda: radix_histogram_torch(vals, count, bins))
-    del vals
+        lambda: radix_histogram_torch(vals, count, bins),
+        library=("torch.bincount(minlength=n_bins) on the masked prefix",
+                 lambda: torch.bincount(masked, minlength=bins)),
+        n_bytes=count * 4 + bins * 4)
+    del vals, masked
 
     # rank kernel at the shapes the partition (256 digits + the dead
     # bin) and the 18-bit radix sort (9-bit digits) give it
@@ -255,7 +217,12 @@ def _phase_radix_kernels(dev, gen, errs):
         row = report("rank_hist", f"n=2^24 digits in [0, {bins}]",
                      list(zip(got, want)),
                      lambda: kernels.rank_hist_cuda(digits, bins),
-                     lambda: rank_and_hist_torch(digits, bins))
+                     lambda: rank_and_hist_torch(digits, bins),
+                     library=(None, "none: no PyTorch call computes "
+                              "per-block stable ranks and block histograms;"
+                              " torch.sort(stable=True) is its consumers' "
+                              "yardstick (partition_order row)"),
+                     n_bytes=n * 8 + -(-n // kernels.RANK_BLOCK) * bins * 4)
         rows.setdefault("rank_hist", row)
 
     keys = torch.randint(0, 1 << 18, (n,), generator=gen, device=dev,
@@ -595,30 +562,57 @@ def _scale_run(name, rels, q, expected, n_tuples, dev):
     return line
 
 
-def _profile(run, top=8):
+# the __global__ functions of csrc/ behind each wrapper's launch count
+CSRC_KERNELS = {"bincount": ("bincount_smem_kernel", "bincount_cached_kernel"),
+                "gather": ("gather_kernel",),
+                "radix_hist": ("radix_hist_kernel",),
+                "rank_hist": ("rank_hist_kernel",)}
+
+
+def _profile(run, top=8, tries=3):
     """One warm run under torch.profiler: its host wall time, the summed
     device time of its kernels (one stream, so they do not overlap) and
-    the top kernels by device time."""
+    the top kernels by device time. The capture is held to the wrappers'
+    own launch counts: one that recorded another number of csrc kernel
+    launches than the wrappers made in that run is taken again, up to
+    `tries` times, and then reported as not measured."""
     import torch
+    from radixhashjoin_tpu_torch import kernels
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        wall_s = time.perf_counter() - t0
-    rows = []
-    for ev in prof.key_averages():
-        dt = getattr(ev, "device_time_total", None)
-        if dt is None:
-            dt = getattr(ev, "cuda_time_total", 0)
-        if dt and ev.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((dt, ev.key, ev.count))
+    seen = []
+    for _ in range(tries):
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            wall_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        rows = []
+        for ev in prof.key_averages():
+            dt = getattr(ev, "device_time_total", None)
+            if dt is None:
+                dt = getattr(ev, "cuda_time_total", 0)
+            if dt and ev.device_type == torch.autograd.DeviceType.CUDA:
+                rows.append((dt, ev.key, ev.count))
+        if not rows:
+            return "not measured (profiler recorded no device time)"
+        made = sum(kernels.LAUNCHES[k] - before[k] for k in before)
+        names = tuple(f"(anonymous namespace)::{f}("
+                      for fns in CSRC_KERNELS.values() for f in fns)
+        captured = sum(c for _, k, c in rows if k.startswith(names))
+        seen.append([captured, made])
+        if captured == made:
+            break
+    else:
+        return (f"not measured (the capture missed csrc kernel launches: "
+                f"[captured, made] per try {seen})")
     rows.sort(reverse=True)
-    if not rows:
-        return "not measured (profiler recorded no device time)"
     return {"wall_s_profiled": wall_s,
             "device_us_total": sum(r[0] for r in rows),
             "kernel_launches": sum(r[2] for r in rows),
+            "csrc_launches_captured_made": seen,
             "top": [{"kernel": k[:80], "device_us": dt, "calls": c}
                     for dt, k, c in rows[:top]]}
 
@@ -962,7 +956,12 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[key], "max_abs_err": errs[key],
-         "ms": timed[key]["ms"], "plain_ms": timed[key]["plain_ms"]}
+         "ms": timed[key]["ms"], "plain_ms": timed[key]["plain_ms"],
+         "bound_ms": timed[key]["bound_ms"],
+         "bound_by": timed[key]["bound_by"],
+         "library_ms": timed[key]["library_ms"],
+         "library_call": timed[key]["library_call"],
+         "case": timed[key]["case"]}
         for name, key, src, rep, counts in rows]}))
     print(_nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -187,7 +187,9 @@ def weighted_bincount_cuda(idxs: torch.Tensor, weights: torch.Tensor,
 
 def table_gather_cuda(table: torch.Tensor, keys: torch.Tensor
                       ) -> torch.Tensor:
-    """int32[n]: table[keys[i]] where 0 <= keys[i] < len(table), else 0."""
+    """int32[n]: table[keys[i]] where 0 <= keys[i] < len(table), else 0.
+    The result shares keys' offset within 16 bytes (a view of a buffer up
+    to 3 elements longer), so the kernel moves both 16 bytes at a time."""
     _check("table", table)
     _check("keys", keys)
     if table.device != keys.device:
@@ -198,7 +200,8 @@ def table_gather_cuda(table: torch.Tensor, keys: torch.Tensor
     n = keys.shape[0]
     if n == 0 or n_bins == 0:
         return torch.zeros(n, dtype=torch.int32, device=keys.device)
-    out = torch.empty(n, dtype=torch.int32, device=keys.device)
+    off = keys.data_ptr() % 16 // 4
+    out = torch.empty(n + off, dtype=torch.int32, device=keys.device)[off:]
     lib = _load("tables")
     sms, stream = _launch_env(keys)
     with torch.cuda.device(keys.device):

@@ -16,6 +16,8 @@ import pytest
 import torch
 
 from radixhashjoin_tpu_torch import kernels
+from radixhashjoin_tpu_torch.bench_tables import (CACHE_SLOTS, SMEM_BINS,
+                                                  zipf_keys)
 from radixhashjoin_tpu_torch.config import EngineConfig
 from radixhashjoin_tpu_torch.models.engine import Engine
 from radixhashjoin_tpu_torch.oracle import OracleExecutor, format_result
@@ -67,6 +69,144 @@ def test_gather_kernel_exact(dev, n, n_bins):
     got = kernels.table_gather_cuda(table, keys)
     torch.cuda.synchronize()
     assert torch.equal(got, table_gather_torch(table, keys))
+
+
+# ---- adversarial shapes of the build and lookup (csrc/tables.cu) ----
+
+def _bincount_exact(idx, w, n_bins):
+    got = kernels.weighted_bincount_cuda(idx, w, n_bins)
+    torch.cuda.synchronize()
+    assert torch.equal(got, weighted_bincount_torch(idx, w, n_bins))
+    return got
+
+
+def _gather_exact(table, keys):
+    got = kernels.table_gather_cuda(table, keys)
+    torch.cuda.synchronize()
+    assert torch.equal(got, table_gather_torch(table, keys))
+    return got
+
+
+@pytest.mark.parametrize("n_bins", [1024, SMEM_BINS, 1 << 20])
+def test_bincount_one_bin_total_just_below_2_31(dev, n_bins):
+    """Every row on one bin (one hot address, every warp one group), the
+    total 2^31 - 1: any lost or doubled partial shows."""
+    n = 1 << 20
+    w = torch.full((n,), (2**31 - 1) // n, dtype=torch.int32, device=dev)
+    w[-1] += (2**31 - 1) - ((2**31 - 1) // n) * n
+    idx = torch.full((n,), n_bins - 1, dtype=torch.int32, device=dev)
+    got = _bincount_exact(idx, w, n_bins)
+    assert int(got[n_bins - 1]) == 2**31 - 1
+
+
+@pytest.mark.parametrize("n_bins", [SMEM_BINS, 1 << 20])
+def test_bincount_clipped_zipf(dev, n_bins):
+    """2^22 clipped-Zipf(1.1) rows (a quarter on the last bin), ~10% on the
+    mask sentinel, a few -1s."""
+    g = torch.Generator(device=dev).manual_seed(n_bins)
+    n = 1 << 22
+    idx = zipf_keys(g, n, n_bins, dev)
+    idx = torch.where(torch.rand(n, generator=g, device=dev) < 0.1, n_bins,
+                      idx)
+    idx[:: 1 << 18] = -1
+    w = torch.randint(0, 100, (n,), generator=g, device=dev,
+                      dtype=torch.int32)
+    _bincount_exact(idx, w, n_bins)
+
+
+@pytest.mark.parametrize("distinct,log_n,repeat", [
+    (3 * CACHE_SLOTS, 24, 2), (1 << 20, 22, 1)])
+def test_bincount_more_bins_than_cache_slots(dev, distinct, log_n, repeat):
+    """More distinct bins than a block's aggregation cache holds
+    (CACHE_SLOTS): 3 * CACHE_SLOTS bins in runs of two equal keys over 2^24
+    rows, so that each block (at most two per SM, ~2^16 rows each) meets
+    about twice as many bins as it has slots while its keys still repeat:
+    cached partials and device atomics land on the same bins. And 2^20
+    bins over 2^22 rows, which seldom repeat within a block."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    n = 1 << log_n
+    idx = torch.randint(0, distinct, (n // repeat,), generator=g, device=dev,
+                        dtype=torch.int32).repeat_interleave(repeat)
+    w = torch.randint(1, 1000, (n,), generator=g, device=dev,
+                      dtype=torch.int32)
+    _bincount_exact(idx, w, 1 << 20)
+
+
+def _warp_patterns(n_bins, reps):
+    """Chunks of 32 lanes: all equal; all distinct; equal bins mixed with
+    zero weights, the sentinel n_bins and -1; then a ragged 17-lane tail."""
+    lanes = np.arange(32)
+    equal = np.full(32, 3)
+    distinct = (lanes * 37) % n_bins
+    mixed = np.where(lanes % 4 == 0, n_bins, np.where(lanes % 4 == 1, -1,
+                                                      lanes % 3))
+    idx = np.concatenate([np.tile(np.concatenate([equal, distinct, mixed]),
+                                  reps), (lanes[:17] * 5) % n_bins])
+    w = np.arange(1, idx.size + 1, dtype=np.int64) % 1000
+    w[np.arange(idx.size) % 32 == 7] = 0        # zero-weight lanes
+    return idx.astype(np.int32), w.astype(np.int32)
+
+
+@pytest.mark.parametrize("n_bins", [64, SMEM_BINS + 1, 1 << 20])
+@pytest.mark.parametrize("reps", [1, 50000])
+def test_bincount_warp_patterns(dev, n_bins, reps):
+    idx, w = _warp_patterns(n_bins, reps)
+    _bincount_exact(torch.from_numpy(idx).to(dev),
+                    torch.from_numpy(w).to(dev), n_bins)
+
+
+@pytest.mark.parametrize("n", range(1, 10))
+def test_kernels_tiny_n(dev, n):
+    g = torch.Generator(device=dev).manual_seed(n)
+    for n_bins in (700, 1 << 20):
+        idx = torch.randint(-2, n_bins + 2, (n,), generator=g, device=dev,
+                            dtype=torch.int32)
+        idx[0] = n_bins - 1
+        w = torch.randint(0, 1 << 20, (n,), generator=g, device=dev,
+                          dtype=torch.int32)
+        _bincount_exact(idx, w, n_bins)
+        table = torch.randint(-2**31, 2**31 - 1, (n_bins,), generator=g,
+                              device=dev, dtype=torch.int32)
+        _gather_exact(table, idx)
+
+
+@pytest.mark.parametrize("n_bins", [SMEM_BINS - 1, SMEM_BINS,
+                                    SMEM_BINS + 1])
+def test_kernels_at_shared_memory_threshold(dev, n_bins):
+    """Both kernels just inside and just past the shared-memory tables;
+    the lookup with enough keys to stage the table and with too few."""
+    g = torch.Generator(device=dev).manual_seed(n_bins)
+    n = 1 << 22
+    idx = torch.randint(-3, n_bins + 3, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    w = torch.randint(0, 500, (n,), generator=g, device=dev,
+                      dtype=torch.int32)
+    _bincount_exact(idx, w, n_bins)
+    table = torch.randint(-2**31, 2**31 - 1, (n_bins,), generator=g,
+                          device=dev, dtype=torch.int32)
+    _gather_exact(table, idx)
+    _gather_exact(table, idx[:1001])
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("rem", [1, 2, 3])
+@pytest.mark.parametrize("n_bins", [1024, 1 << 20])
+def test_kernels_on_unaligned_views(dev, offset, rem, n_bins):
+    """Contiguous views at element offsets 1-3 of a larger tensor, n % 4
+    = rem: the lookup's scalar head and tail around its 16-byte body."""
+    g = torch.Generator(device=dev).manual_seed(offset * 10 + rem)
+    for n in (rem, 4 * 1000 + rem, (1 << 20) + rem):
+        base = torch.randint(-3, n_bins + 3, (n + 8,), generator=g,
+                             device=dev, dtype=torch.int32)
+        keys = base[offset:offset + n]
+        assert keys.is_contiguous() and keys.data_ptr() % 16 != 0
+        table = torch.randint(-2**31, 2**31 - 1, (n_bins,), generator=g,
+                              device=dev, dtype=torch.int32)
+        got = _gather_exact(table, keys)
+        assert got.data_ptr() % 16 == keys.data_ptr() % 16
+        w = torch.randint(0, 100, (n + 8,), generator=g, device=dev,
+                          dtype=torch.int32)[8 - offset:8 - offset + n]
+        _bincount_exact(keys, w, n_bins)
 
 
 def test_wrappers_reject_bad_operands(dev):
