@@ -15,8 +15,9 @@ Phases (any failure raises and exits non-zero; nothing is swallowed):
      bound (bytes moved over 3.35 TB/s); the build and lookup through
      bench_tables (Zipf and uniform 2^26-row builds, shared-memory-size
      tables, lookups into 2^20-, 2^18-, 48K- and 1024-entry tables); the
+     rank kernel on uniform, one-hot, sorted-run and all-dead digits; the
      partition and the 18-bit radix sort built on the rank kernel against
-     torch.sort(stable=True);
+     torch.sort(stable=True), with every device op of a profiled call;
   3. the CLI on a synthetic catalog shaped like the contest's `small`
      set (14 relations, ~270K uint64 tuples, 50 tree-shaped queries in
      5 batches): once as a subprocess, once in-process through
@@ -162,10 +163,11 @@ def _phase_radix_kernels(dev, gen, errs):
     errs.update({"radix_hist": 0, "rank_hist": 0})
     rows = {}
 
-    def report(name, label, pairs, kernel_fn, plain_fn, profile=False,
+    def report(name, label, pairs, kernel_fn, plain_fn, profile=0,
                library=None, n_bytes=None):
         """`library`: (call, fn) or (None, reason); `n_bytes`: what the
-        function must move, for bound_ms."""
+        function must move, for bound_ms; `profile`: how many of the
+        device ops of a profiled call to list (0: no profile)."""
         err = max(_max_abs_err(g, w) for g, w in pairs)
         errs[name] = max(errs.get(name, 0), err)
         if not all(torch.equal(g, w) for g, w in pairs):
@@ -181,7 +183,7 @@ def _phase_radix_kernels(dev, gen, errs):
             row["bound_ms"] = bound_ms(n_bytes)
             row["bound_by"] = "bytes"
         if profile:
-            row["device_profile"] = _profile(kernel_fn, top=6)
+            row["device_profile"] = _profile(kernel_fn, top=profile)
         print(json.dumps(row))
         return row
 
@@ -206,15 +208,24 @@ def _phase_radix_kernels(dev, gen, errs):
     del vals, masked
 
     # rank kernel at the shapes the partition (256 digits + the dead
-    # bin) and the 18-bit radix sort (9-bit digits) give it
+    # bin) and the 18-bit radix sort (9-bit digits) give it, uniform over
+    # [0, bins] (bins itself being the dead digit, ranked but not
+    # counted), then skewed: one hot digit, sorted runs, all dead
     n = 1 << 24
-    for bins in (257, 513):
-        digits = torch.randint(0, bins + 1, (n,), generator=gen,
-                               device=dev, dtype=torch.int32)
+    for dist, bins in (("uniform", 257), ("uniform", 513), ("hot", 257),
+                       ("runs", 257), ("dead", 257)):
+        if dist in ("uniform", "runs"):
+            digits = torch.randint(0, bins + 1, (n,), generator=gen,
+                                   device=dev, dtype=torch.int32)
+            if dist == "runs":
+                digits = torch.sort(digits).values
+        else:
+            digits = torch.full((n,), bins if dist == "dead" else bins // 2,
+                                dtype=torch.int32, device=dev)
         got = kernels.rank_hist_cuda(digits, bins)
         want = rank_and_hist_torch(digits, bins)
         torch.cuda.synchronize()
-        row = report("rank_hist", f"n=2^24 digits in [0, {bins}]",
+        row = report("rank_hist", f"n=2^24 {dist} digits in [0, {bins}]",
                      list(zip(got, want)),
                      lambda: kernels.rank_hist_cuda(digits, bins),
                      lambda: rank_and_hist_torch(digits, bins),
@@ -232,13 +243,13 @@ def _phase_radix_kernels(dev, gen, errs):
     report("partition_order", "n=2^24 256 digits vs torch.sort(stable)",
            [(partition_order(digits, 256)[0], want)],
            lambda: partition_order(digits, 256),
-           lambda: torch.sort(digits, stable=True), profile=True)
+           lambda: torch.sort(digits, stable=True), profile=16)
     want = torch.sort(keys, stable=True).indices.to(torch.int32)
     report("radix_sort_order",
            "n=2^24 18-bit keys, 9-bit digits vs torch.sort(stable)",
            [(radix_sort_order(keys, 18, 9), want)],
            lambda: radix_sort_order(keys, 18, 9),
-           lambda: torch.sort(keys, stable=True), profile=True)
+           lambda: torch.sort(keys, stable=True), profile=16)
     return rows
 
 

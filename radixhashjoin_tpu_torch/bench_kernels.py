@@ -16,6 +16,7 @@ On the card it measures, at n = 2**log_rows rows over a 2**18 domain:
   sort_probe_tuples_per_s          ops/join.probe_count (torch.sort)
   pallas_partition_tuples_per_s    ops/partition.partition_order, 256
                                    digits (the rank kernel), with the
+                                   rank kernel alone (257 bins), the
                                    18-bit radix sort (9-bit digits) and
                                    torch.sort(stable=True) beside it
 
@@ -46,7 +47,8 @@ import torch
 from .models.engine import resolve_device
 from .ops.join import probe_count
 from .ops.join_dense import dense_probe
-from .ops.partition import partition_order, radix_sort_order
+from .ops.partition import (partition_order, radix_sort_order,
+                            rank_and_hist, rank_and_hist_torch)
 from .ops.radix_hist import radix_histogram, radix_histogram_torch
 from .ops.tables import (scatter_table, table_gather, table_gather_torch,
                          weighted_bincount_torch)
@@ -176,10 +178,15 @@ def run(dev: torch.device, log_rows: int, out: TextIO = sys.stdout) -> None:
            torch.bincount(digits, minlength=256).to(torch.int32))
     _equal("radix_sort_order", radix_sort_order(idx, 18, 9),
            torch.sort(idx, stable=True).indices.to(torch.int32))
+    for got, want in zip(rank_and_hist(digits, 257),
+                         rank_and_hist_torch(digits, 257)):
+        _equal("rank_and_hist", got, want)
     ms = b.ms(lambda: partition_order(digits, 256), 5)
+    ms_rank = b.ms(lambda: rank_and_hist(digits, 257), 10)
     ms_radix = b.ms(lambda: radix_sort_order(idx, 18, 9), 5)
     ms_sort = b.ms(lambda: torch.sort(idx, stable=True), 10)
     b.emit("pallas_partition_tuples_per_s", "tuples/s", ms, b.rate(n, ms),
+           rank_hist_tuples_per_s=b.rate(n, ms_rank), rank_hist_ms=ms_rank,
            radix_sort_18bit_tuples_per_s=b.rate(n, ms_radix),
            radix_sort_ms=ms_radix,
            xla_argsort_tuples_per_s=b.rate(n, ms_sort), argsort_ms=ms_sort)

@@ -42,7 +42,7 @@ NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"
 
 # mirror kHistMaxBins / kRankMaxBins of csrc/radix.cu (shared memory)
 RADIX_HIST_MAX_BINS = 32 * 1024
-RANK_HIST_MAX_BINS = 48 * 1024 // 4 - 2048 - 1
+RANK_HIST_MAX_BINS = 227 * 1024 // 8 - 1
 RANK_BLOCK = 2048
 
 LAUNCHES = {"bincount": 0, "gather": 0, "radix_hist": 0, "rank_hist": 0}
@@ -258,7 +258,8 @@ def rank_hist_cuda(digits: torch.Tensor, n_bins: int
     n_bins = int(n_bins)
     if not 1 <= n_bins <= RANK_HIST_MAX_BINS:
         raise ValueError(f"n_bins must be in [1, {RANK_HIST_MAX_BINS}] "
-                         f"(one warp's counters in shared memory), got "
+                         f"(one warp's 8-byte cells in a block's 227 KB "
+                         f"of shared memory), got "
                          f"{n_bins}")
     n = digits.shape[0]
     n_blocks = -(-n // RANK_BLOCK)

@@ -12,14 +12,18 @@ The destination of every element then follows from scans:
 exclusive scan of the block histograms down the block axis; together,
 one exclusive scan of the block histograms in digit-major order), and
 one scatter with unique indices writes the permutation. Chaining passes
-LSB-first gives a stable radix sort equal to
-`torch.sort(keys, stable=True).indices`.
+LSB-first, each scattering the order so far and the keys to `dest`,
+gives a stable radix sort equal to `torch.sort(keys,
+stable=True).indices`.
 
 The rank kernel is hand-written for Hopper (csrc/radix.cu
 `rhj_rank_hist`); dispatch follows the tensor's device and nothing else:
 a CPU tensor takes `rank_and_hist_torch`, a CUDA tensor launches the
 kernel or raises. The scans, the `dest` arithmetic and the scatter are
-plain PyTorch on either device, as they are XLA in the reference.
+plain PyTorch on either device, as they are XLA in the reference; the
+per-element lookup of `bin_offset + block_base` by block and digit goes
+through the table lookup of ops/tables.py, which on a card is the kernel
+of csrc/tables.cu.
 
 Digits lie in [0, n_bins]; n_bins itself is the dead-lane bin, ranked
 among its equals but left out of the histograms. A digit outside that
@@ -33,6 +37,7 @@ from typing import Tuple
 import torch
 
 from .. import kernels
+from .tables import table_gather
 
 BLOCK = kernels.RANK_BLOCK          # 2048, as in the reference: the block
 #                                     size is part of rank_and_hist's output
@@ -69,12 +74,36 @@ def rank_and_hist(digits: torch.Tensor, n_bins: int
     return kernels.rank_hist_cuda(digits, n_bins)
 
 
-def partition_order(digits: torch.Tensor, n_bins: int
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stable-partition permutation: order[j] = source index of the j-th
-    element when stably grouped by digit, digits == n_bins (dead lanes)
-    last. Returns (order int32[n], hist int32[n_bins + 1]); hist[n_bins]
-    counts the dead lanes."""
+def _iota(n: int, dev: torch.device) -> torch.Tensor:
+    """int32[n] 0, 1, ..., n - 1 as one broadcast add of a block's iota
+    and the blocks' starts."""
+    n_blocks = -(-n // BLOCK)
+    starts = torch.arange(0, n_blocks * BLOCK, BLOCK, dtype=torch.int32,
+                          device=dev)
+    lanes = torch.arange(BLOCK, dtype=torch.int32, device=dev)
+    return (starts[:, None] + lanes).view(-1)[:n]
+
+
+def _block_major_keys(digits: torch.Tensor, width: int) -> torch.Tensor:
+    """int32[n]: blk * width + digit, blk the element's 2048-block; one
+    pass over the digits."""
+    n = digits.shape[0]
+    n_blocks = -(-n // BLOCK)
+    full = n // BLOCK
+    rows = torch.arange(0, n_blocks * width, width, dtype=torch.int32,
+                        device=digits.device)
+    keys = torch.empty(n, dtype=torch.int32, device=digits.device)
+    torch.add(digits[:full * BLOCK].view(full, BLOCK), rows[:full, None],
+              out=keys[:full * BLOCK].view(full, BLOCK))
+    if full < n_blocks:
+        torch.add(digits[full * BLOCK:], rows[full], out=keys[full * BLOCK:])
+    return keys
+
+
+def _destinations(digits: torch.Tensor, n_bins: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dest int32[n], hist int32[n_bins + 1]): where each element goes
+    in the stable partition by digit."""
     n = digits.shape[0]
     dev = digits.device
     nb = n_bins + 1                      # digit n_bins = dead/sentinel bin
@@ -82,32 +111,56 @@ def partition_order(digits: torch.Tensor, n_bins: int
     n_blocks = bh.shape[0]
     # bin_offset[d] + block_base[blk, d] is one exclusive scan of the
     # block histograms in digit-major order
-    groups = bh.t().reshape(-1)
-    base = torch.cumsum(groups, 0, dtype=torch.int32) - groups
-    idx = torch.arange(n, dtype=torch.int32, device=dev)
-    d = digits.clamp(0, nb - 1)
-    dest = base.index_select(0, d * n_blocks + idx // BLOCK) + ranks
-    # dest is a permutation of [0, n) for digits in range; anything else
-    # lands in a spare slot past the end (a CUDA scatter with an
-    # out-of-range index device-asserts)
-    dest = torch.where((dest >= 0) & (dest < n), dest, n)
-    order = torch.zeros(n + 1, dtype=torch.int32, device=dev)
-    order.index_copy_(0, dest.long(), idx)
-    return order[:n], bh.sum(0, dtype=torch.int32)
+    counts = bh.t().contiguous().view(-1)
+    base = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    # the lookup table, block-major so that a block's lookups share a
+    # row; column nb (a digit the rank kernel ranks but counts nowhere)
+    # points past the end
+    table = torch.empty((n_blocks, nb + 1), dtype=torch.int32, device=dev)
+    table[:, :nb] = base.view(nb, n_blocks).t()
+    table[:, nb] = n
+    # dest = table[blk, d] + rank is a permutation of [0, n) for digits in
+    # [0, n_bins]; any other digit has rank 0 or is nb, so it lands in
+    # the BLOCK spare slots past the end or on a slot in [0, n] (the
+    # lookup gives 0 for a key off the table): never out of bounds
+    dest = table_gather(table.view(-1), _block_major_keys(digits, nb + 1))
+    dest += ranks
+    return dest, bh.sum(0, dtype=torch.int32)
+
+
+def _scatter(dest: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """out[dest[i]] = values[i] for the unique destinations of
+    _destinations: adding onto zeros writes each value once, and
+    index_add_ takes int32 indices as they are."""
+    n = values.shape[0]
+    out = torch.zeros(n + BLOCK, dtype=values.dtype, device=values.device)
+    out.index_add_(0, dest, values)
+    return out[:n]
+
+
+def partition_order(digits: torch.Tensor, n_bins: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable-partition permutation: order[j] = source index of the j-th
+    element when stably grouped by digit, digits == n_bins (dead lanes)
+    last. Returns (order int32[n], hist int32[n_bins + 1]); hist[n_bins]
+    counts the dead lanes."""
+    dest, hist = _destinations(digits, n_bins)
+    return _scatter(dest, _iota(digits.shape[0], digits.device)), hist
 
 
 def radix_sort_order(keys: torch.Tensor, bits: int, digit_bits: int = 8
                      ) -> torch.Tensor:
     """Stable ascending sort permutation (int32[n]) of int32 keys in
-    [0, 2**bits): LSB-first partition passes of `digit_bits` bits each.
-    Equal to torch.sort(keys, stable=True).indices."""
-    n = keys.shape[0]
-    order = torch.arange(n, dtype=torch.int32, device=keys.device)
+    [0, 2**bits): LSB-first partition passes of `digit_bits` bits each,
+    each moving the order and the keys to their destinations. Equal to
+    torch.sort(keys, stable=True).indices."""
+    order = _iota(keys.shape[0], keys.device)
     k = keys
     for shift in range(0, bits, digit_bits):
         nb = 1 << min(digit_bits, bits - shift)
-        digits = (k >> shift) & (nb - 1)
-        p, _ = partition_order(digits, nb)
-        order = order.index_select(0, p)
-        k = k.index_select(0, p)
+        digits = ((k >> shift) if shift else k) & (nb - 1)
+        dest, _ = _destinations(digits, nb)
+        order = _scatter(dest, order)
+        if shift + digit_bits < bits:    # the last pass needs no keys
+            k = _scatter(dest, k)
     return order

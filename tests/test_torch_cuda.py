@@ -289,17 +289,28 @@ def test_radix_histogram_kernel_wide_and_refused(dev):
         radix_histogram(vals, 5, 257)
 
 
-@pytest.mark.parametrize("n", SIZES)
-@pytest.mark.parametrize("n_bins", [128, 256, 257, 513])
-def test_rank_hist_kernel_exact(dev, n, n_bins):
-    g = torch.Generator(device=dev).manual_seed(n * 7 + n_bins)
-    # digits in [0, n_bins]: n_bins is the dead-lane bin, ranked but not
-    # counted; a few out-of-range digits get rank 0 and count nowhere
+def _rank_digits(dist, n, n_bins, g, dev):
+    """int32[n] digits of one distribution: `misfits` (uniform over
+    [0, n_bins], n_bins being the dead-lane bin that is ranked but not
+    counted, plus out-of-range digits, which get rank 0 and count
+    nowhere), `uniform`, `hot` (one digit), `runs` (sorted, so runs
+    longer than a warp's chunk) or `dead` (every digit n_bins)."""
+    if dist == "hot":
+        return torch.full((n,), n_bins // 2, dtype=torch.int32, device=dev)
+    if dist == "dead":
+        return torch.full((n,), n_bins, dtype=torch.int32, device=dev)
     digits = torch.randint(0, n_bins + 1, (n,), generator=g, device=dev,
                            dtype=torch.int32)
-    if n > 10:
+    if dist == "runs":
+        return torch.sort(digits).values
+    if dist == "misfits" and n > 10:
         digits[:: 997] = -3
         digits[5:: 1999] = n_bins + 4
+    return digits
+
+
+def _rank_exact(digits, n_bins):
+    n = digits.shape[0]
     before = kernels.LAUNCHES["rank_hist"]
     ranks, hists = kernels.rank_hist_cuda(digits, n_bins)
     torch.cuda.synchronize()
@@ -310,15 +321,52 @@ def test_rank_hist_kernel_exact(dev, n, n_bins):
     assert torch.equal(hists, want_h)
 
 
+@pytest.mark.parametrize("dist", ["misfits", "uniform", "hot", "runs",
+                                  "dead"])
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("n_bins", [128, 256, 257, 513])
+def test_rank_hist_kernel_exact(dev, n, n_bins, dist):
+    g = torch.Generator(device=dev).manual_seed(n * 7 + n_bins)
+    _rank_exact(_rank_digits(dist, n, n_bins, g, dev), n_bins)
+
+
+# every n_bins at which the launch configuration changes: each warp
+# ranks a 2048-element block in n_bins + 1 cells of 8 bytes, a CUDA block
+# holds min(8, 6144 // (n_bins + 1)) warps (48 KB), and one warp past
+# 6143 bins (shared memory above 48 KB)
+RANK_CONFIG_BINS = [1, 2, 31, 767, 768, 876, 877, 1023, 1024, 1227, 1228,
+                    1535, 1536, 2047, 2048, 3071, 3072, 6143, 6144, 10239,
+                    kernels.RANK_HIST_MAX_BINS]
+
+
+@pytest.mark.parametrize("n_bins", RANK_CONFIG_BINS)
+@pytest.mark.parametrize("dist", ["misfits", "runs"])
+def test_rank_hist_launch_configurations(dev, n_bins, dist):
+    g = torch.Generator(device=dev).manual_seed(n_bins)
+    # 25 blocks of 2048, the last ragged: the last CUDA block has fewer
+    # 2048-element blocks than warps
+    _rank_exact(_rank_digits(dist, 50_000, n_bins, g, dev), n_bins)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("n_bins", [257, 4095])
+def test_rank_hist_on_unaligned_views(dev, offset, n_bins):
+    g = torch.Generator(device=dev).manual_seed(offset)
+    buf = torch.randint(0, n_bins + 1, (9000,), generator=g, device=dev,
+                        dtype=torch.int32)
+    _rank_exact(buf[offset:offset + 6147], n_bins)
+
+
 def test_rank_hist_refuses_wide_bins(dev):
     d = torch.zeros(5, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         kernels.rank_hist_cuda(d, kernels.RANK_HIST_MAX_BINS + 1)
     ranks, _ = kernels.rank_hist_cuda(d, kernels.RANK_HIST_MAX_BINS)
     assert ranks.tolist() == [0, 1, 2, 3, 4]
+    assert kernels.RANK_HIST_MAX_BINS >= 10239    # the limit never falls
 
 
-@pytest.mark.parametrize("n", [1, 2049, 3_000_017])
+@pytest.mark.parametrize("n", [1, 2049, 3_000_017, 0])
 def test_partition_and_radix_sort_match_torch_sort(dev, n):
     g = torch.Generator(device=dev).manual_seed(n)
     keys = torch.randint(0, 1 << 18, (n,), generator=g, device=dev,
@@ -331,6 +379,33 @@ def test_partition_and_radix_sort_match_torch_sort(dev, n):
     assert torch.equal(order,
                        torch.sort(digits, stable=True).indices.int())
     assert torch.equal(hist, torch.bincount(digits, minlength=257).int())
+
+
+@pytest.mark.parametrize("dist", ["hot", "runs", "dead"])
+def test_partition_skewed_matches_torch_sort(dev, dist):
+    g = torch.Generator(device=dev).manual_seed(5)
+    digits = _rank_digits(dist, 3_000_017, 256, g, dev)
+    order, hist = partition_order(digits, 256)
+    assert torch.equal(order,
+                       torch.sort(digits, stable=True).indices.int())
+    assert torch.equal(hist, torch.bincount(digits, minlength=257).int())
+
+
+def test_partition_out_of_range_digits_stay_in_bounds(dev):
+    """Digits outside [0, n_bins] have no place in the order; they must
+    not make the scatter leave its buffer (a device assert) nor disturb
+    the histogram."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    digits = torch.randint(0, 257, (100_003,), generator=g, device=dev,
+                           dtype=torch.int32)
+    digits[:: 101] = -7
+    digits[3:: 103] = 257
+    digits[5:: 107] = 2**31 - 1
+    order, hist = partition_order(digits, 256)
+    torch.cuda.synchronize()
+    ok = (digits >= 0) & (digits <= 256)
+    assert order.shape == digits.shape
+    assert torch.equal(hist, torch.bincount(digits[ok], minlength=257).int())
 
 
 def _general_queries(rng, rels, n_queries=10):

@@ -38,9 +38,11 @@ def test_block_is_the_reference_block():
 
 # ---- rank_and_hist ----
 
+# the last: a width past the CUDA kernel's 8-warp blocks (767 bins)
+# that interpret mode still runs in seconds
 @pytest.mark.parametrize("n,n_bins", [(BLOCK, 8), (3 * BLOCK, 256),
                                       (BLOCK + 37, 16), (2 * BLOCK - 1, 7),
-                                      (BLOCK + 1, 257)])
+                                      (BLOCK + 1, 257), (BLOCK + 77, 1500)])
 def test_rank_and_hist_matches_jax(n, n_bins):
     rng = np.random.default_rng(n + n_bins)
     digits = rng.integers(0, n_bins, n).astype(np.int32)
@@ -50,6 +52,25 @@ def test_rank_and_hist_matches_jax(n, n_bins):
     np.testing.assert_array_equal(ranks.numpy(), np.asarray(jr))
     np.testing.assert_array_equal(bh.numpy(), np.asarray(jh))
     assert ranks.dtype == bh.dtype == torch.int32
+
+
+def _skewed_digits(dist, n, n_bins, rng):
+    """One hot digit, or sorted runs (each longer than a warp's chunk of
+    the CUDA kernel) over [0, n_bins)."""
+    if dist == "hot":
+        return np.full(n, n_bins // 2, np.int32)
+    return np.sort(rng.integers(0, n_bins, n)).astype(np.int32)
+
+
+@pytest.mark.parametrize("dist", ["hot", "runs"])
+@pytest.mark.parametrize("n,n_bins", [(3 * BLOCK + 5, 257), (BLOCK, 9)])
+def test_rank_and_hist_skewed_matches_jax(dist, n, n_bins):
+    digits = _skewed_digits(dist, n, n_bins, np.random.default_rng(n))
+    ranks, bh = tpart.rank_and_hist(_t(digits), n_bins)
+    jr, jh = jpart.rank_and_hist(jnp.asarray(digits), n_bins,
+                                 interpret=True)
+    np.testing.assert_array_equal(ranks.numpy(), np.asarray(jr))
+    np.testing.assert_array_equal(bh.numpy(), np.asarray(jh))
 
 
 def _stable_ranks(digits):
@@ -118,6 +139,41 @@ def test_partition_order_matches_jax(n, n_bins, dead):
     np.testing.assert_array_equal(order.numpy(),
                                   np.argsort(digits, kind="stable"))
     assert int(hist[n_bins]) == dead
+
+
+@pytest.mark.parametrize("dist", ["hot", "runs"])
+def test_partition_order_skewed_matches_jax(dist):
+    n, n_bins = 2 * BLOCK + 300, 256
+    digits = _skewed_digits(dist, n, n_bins, np.random.default_rng(1))
+    order, hist = tpart.partition_order(_t(digits), n_bins)
+    jo, jh = jpart.partition_order(jnp.asarray(digits), n_bins,
+                                   interpret=True)
+    np.testing.assert_array_equal(order.numpy(), np.asarray(jo))
+    np.testing.assert_array_equal(hist.numpy(), np.asarray(jh))
+    np.testing.assert_array_equal(order.numpy(),
+                                  np.argsort(digits, kind="stable"))
+
+
+def test_partition_order_out_of_range_digits_stay_in_bounds():
+    """Digits outside [0, n_bins] have no place in the order (the
+    reference drops or clips them); they must not take the scatter out
+    of its buffer, and the histogram counts only digits in range."""
+    rng = np.random.default_rng(4)
+    digits = rng.integers(0, 17, 3 * BLOCK + 9).astype(np.int32)
+    digits[::7] = -5
+    digits[3::11] = 17
+    digits[5::13] = 2**31 - 1
+    order, hist = tpart.partition_order(_t(digits), 16)
+    ok = (digits >= 0) & (digits <= 16)
+    assert order.shape == (len(digits),)
+    np.testing.assert_array_equal(hist.numpy(),
+                                  np.bincount(digits[ok], minlength=17))
+
+
+def test_partition_order_empty():
+    order, hist = tpart.partition_order(torch.zeros(0, dtype=torch.int32),
+                                        8)
+    assert order.shape == (0,) and hist.tolist() == [0] * 9
 
 
 @pytest.mark.parametrize("n,bits,digit_bits", [(BLOCK, 8, 8),
@@ -205,10 +261,11 @@ def test_each_library_hashes_its_own_source(tmp_path, monkeypatch):
 
 def test_rank_hist_bound_mirrors_the_source():
     """kernels.py checks n_bins against the limit csrc/radix.cu derives
-    from 48 KB of shared memory: 2048 staged digits + n_bins + 1
-    counters."""
-    assert (kernels.RANK_BLOCK + kernels.RANK_HIST_MAX_BINS + 1) * 4 \
-        == 48 * 1024
+    from the shared memory a block may opt into on sm_90 (227 KB): one
+    warp's n_bins + 1 cells of 8 bytes."""
+    assert (kernels.RANK_HIST_MAX_BINS + 1) * 8 == 227 * 1024
     src = open(kernels.SOURCES["radix"]).read()
+    assert "kRankMaxBins = kMaxSmemBytes / 8 - 1" in src
+    assert "kMaxSmemBytes = 227 * 1024" in src
     assert "kHistMaxBins = 32 * 1024" in src
     assert kernels.RADIX_HIST_MAX_BINS == 32 * 1024
