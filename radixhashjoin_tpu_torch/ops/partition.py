@@ -84,19 +84,21 @@ def _iota(n: int, dev: torch.device) -> torch.Tensor:
     return (starts[:, None] + lanes).view(-1)[:n]
 
 
-def _block_major_keys(digits: torch.Tensor, width: int) -> torch.Tensor:
-    """int32[n]: blk * width + digit, blk the element's 2048-block; one
-    pass over the digits."""
+def _block_major_keys(digits: torch.Tensor, nb: int) -> torch.Tensor:
+    """int32[n]: blk * (nb + 2) + 1 + clamp(d, -1, nb), blk the element's
+    2048-block and d its digit: a digit in [0, nb) keeps its own column,
+    any other one of the block's two spare columns (0 below the range,
+    nb + 1 above it). Two passes over n int32s (a clamp and an add)."""
     n = digits.shape[0]
+    width = nb + 2
     n_blocks = -(-n // BLOCK)
     full = n // BLOCK
-    rows = torch.arange(0, n_blocks * width, width, dtype=torch.int32,
+    rows = torch.arange(1, n_blocks * width + 1, width, dtype=torch.int32,
                         device=digits.device)
-    keys = torch.empty(n, dtype=torch.int32, device=digits.device)
-    torch.add(digits[:full * BLOCK].view(full, BLOCK), rows[:full, None],
-              out=keys[:full * BLOCK].view(full, BLOCK))
+    keys = torch.clamp(digits, -1, nb)
+    keys[:full * BLOCK].view(full, BLOCK).add_(rows[:full, None])
     if full < n_blocks:
-        torch.add(digits[full * BLOCK:], rows[full], out=keys[full * BLOCK:])
+        keys[full * BLOCK:].add_(rows[full])
     return keys
 
 
@@ -114,16 +116,17 @@ def _destinations(digits: torch.Tensor, n_bins: int
     counts = bh.t().contiguous().view(-1)
     base = torch.cumsum(counts, 0, dtype=torch.int32) - counts
     # the lookup table, block-major so that a block's lookups share a
-    # row; column nb (a digit the rank kernel ranks but counts nowhere)
-    # points past the end
-    table = torch.empty((n_blocks, nb + 1), dtype=torch.int32, device=dev)
-    table[:, :nb] = base.view(nb, n_blocks).t()
-    table[:, nb] = n
-    # dest = table[blk, d] + rank is a permutation of [0, n) for digits in
-    # [0, n_bins]; any other digit has rank 0 or is nb, so it lands in
-    # the BLOCK spare slots past the end or on a slot in [0, n] (the
-    # lookup gives 0 for a key off the table): never out of bounds
-    dest = table_gather(table.view(-1), _block_major_keys(digits, nb + 1))
+    # row; the two spare columns, where every digit outside [0, n_bins]
+    # looks up, point past the end
+    table = torch.empty((n_blocks, nb + 2), dtype=torch.int32, device=dev)
+    table[:, 1:nb + 1] = base.view(nb, n_blocks).t()
+    table[:, 0] = n
+    table[:, nb + 1] = n
+    # dest = table[blk, d] + rank is a permutation of [0, k) for the k
+    # digits in [0, n_bins]; any other digit has rank 0, or rank < BLOCK
+    # as the rank kernel's dead digit nb, so it lands in the BLOCK spare
+    # slots past the end, where _scatter drops it
+    dest = table_gather(table.view(-1), _block_major_keys(digits, nb))
     dest += ranks
     return dest, bh.sum(0, dtype=torch.int32)
 
@@ -143,7 +146,10 @@ def partition_order(digits: torch.Tensor, n_bins: int
     """Stable-partition permutation: order[j] = source index of the j-th
     element when stably grouped by digit, digits == n_bins (dead lanes)
     last. Returns (order int32[n], hist int32[n_bins + 1]); hist[n_bins]
-    counts the dead lanes."""
+    counts the dead lanes. Digits outside [0, n_bins] have no place: with
+    k digits in range, order[:k] is the stable order of those k and
+    order[k:] is 0 (the reference clips such a digit and lets it collide,
+    ROADMAP.md §3)."""
     dest, hist = _destinations(digits, n_bins)
     return _scatter(dest, _iota(digits.shape[0], digits.device)), hist
 

@@ -392,19 +392,28 @@ def test_partition_skewed_matches_torch_sort(dev, dist):
 
 
 def test_partition_out_of_range_digits_stay_in_bounds(dev):
-    """Digits outside [0, n_bins] have no place in the order; they must
-    not make the scatter leave its buffer (a device assert) nor disturb
-    the histogram."""
+    """Digits outside [0, n_bins] have no place in the order: with k
+    digits in range, order[:k] is the stable argsort of those k (dead
+    lanes last) and order[k:] is 0; the scatter stays inside its buffer
+    (no device assert) and the histogram counts only digits in range."""
     g = torch.Generator(device=dev).manual_seed(9)
     digits = torch.randint(0, 257, (100_003,), generator=g, device=dev,
                            dtype=torch.int32)
     digits[:: 101] = -7
     digits[3:: 103] = 257
     digits[5:: 107] = 2**31 - 1
+    digits[6:: 109] = -2**31
+    digits[8:: 113] = 258
     order, hist = partition_order(digits, 256)
     torch.cuda.synchronize()
     ok = (digits >= 0) & (digits <= 256)
+    k = int(ok.sum())
     assert order.shape == digits.shape
+    assert bool(((order >= 0) & (order < digits.shape[0])).all())
+    inside = torch.nonzero(ok).flatten()
+    want = inside[torch.sort(digits[inside], stable=True).indices]
+    assert torch.equal(order[:k], want.int())
+    assert not bool(order[k:].any())
     assert torch.equal(hist, torch.bincount(digits[ok], minlength=257).int())
 
 

@@ -155,17 +155,28 @@ def test_partition_order_skewed_matches_jax(dist):
 
 
 def test_partition_order_out_of_range_digits_stay_in_bounds():
-    """Digits outside [0, n_bins] have no place in the order (the
-    reference drops or clips them); they must not take the scatter out
-    of its buffer, and the histogram counts only digits in range."""
+    """Digits outside [0, n_bins] have no place in the order: with k
+    digits in range, order[:k] is the stable argsort of those k (dead
+    lanes last), order[k:] is 0, and the histogram counts only digits in
+    range. The reference clips such digits and lets them collide
+    (pallas_partition.py:145-147), a divergence ROADMAP.md §3 declares."""
     rng = np.random.default_rng(4)
     digits = rng.integers(0, 17, 3 * BLOCK + 9).astype(np.int32)
     digits[::7] = -5
     digits[3::11] = 17
     digits[5::13] = 2**31 - 1
+    digits[6::17] = -2**31
+    digits[8::19] = 18
     order, hist = tpart.partition_order(_t(digits), 16)
     ok = (digits >= 0) & (digits <= 16)
+    k = int(ok.sum())
+    got = order.numpy()
     assert order.shape == (len(digits),)
+    assert (got >= 0).all() and (got < len(digits)).all()
+    inside = np.flatnonzero(ok)
+    np.testing.assert_array_equal(
+        got[:k], inside[np.argsort(digits[inside], kind="stable")])
+    assert (got[k:] == 0).all()
     np.testing.assert_array_equal(hist.numpy(),
                                   np.bincount(digits[ok], minlength=17))
 
