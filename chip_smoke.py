@@ -46,6 +46,16 @@ Phases (any failure raises and exits non-zero; nothing is swallowed):
      synchronizing calls of a warm run under
      torch.cuda.set_sync_debug_mode("warn"): none inside a round, one
      per readback in all;
+  4b. huge nodes, past the 2^28-row threshold of the windowed pass
+     (ops/factorized.py _fused_node_pass), through Engine.run_workload:
+     the Zipf join at 2^29 + 12345 fact rows and the star of
+     scripts/bench_scale.py:315-349 (Zipf key 1, uniform key 2) at
+     2^29 + 4099, each against its closed-form oracle under
+     ftree_window_sort "off" and "on": first run and three warm walls,
+     tuples/s, peak memory, launches (the build and lookup at least once
+     a window), the sync check, the top device ops, and the warm wall
+     against the bound of the bytes the window pass reads (6 and 10 B a
+     fact row over 3.35 TB/s);
   5. the kernel shootout, `bench_kernels --log-rows 26`, in-process:
      its lines, and the launches of its run (the radix kernels' path).
 
@@ -77,6 +87,10 @@ STAR_ROWS = 1 << 24
 DIM_KEYS = 1 << 20
 TRIANGLE_ROWS = 1 << 20
 SHOOTOUT_LOG_ROWS = 26
+# phase 4b: past the 2^28-row huge-node threshold, ragged tails
+HUGE_ZIPF_ROWS = (1 << 29) + 12345
+HUGE_STAR_ROWS = (1 << 29) + 4099
+HUGE_WSORTS = ("off", "on")
 
 # the factorized wave's kernels; the radix kernels run on the shootout
 WAVE_KERNELS = ("bincount", "gather")
@@ -137,6 +151,18 @@ def phase_kernels(dev):
                           dtype=torch.int32)
         check("bincount", kernels.weighted_bincount_cuda(idx, w, bins),
               weighted_bincount_torch(idx, w, bins), f"n={n} bins={bins}")
+    # the huge-node pass builds window by window into a running table: a
+    # 2^26-row Zipf window (phase 4b's) into a nonzero 2^20-bin table
+    bins = DIM_KEYS
+    idx = bench_tables.zipf_keys(gen, 1 << 26, bins, dev)
+    w = torch.randint(0, 100, (1 << 26,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    acc = torch.randint(0, 1 << 20, (bins,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    want = acc + weighted_bincount_torch(idx, w, bins)
+    check("bincount", kernels.weighted_bincount_cuda(idx, w, bins, out=acc),
+          want, f"n=2^26 Zipf bins={bins} into a nonzero accumulator")
+    del idx, w, acc, want
     table = torch.randint(-2**31, 2**31 - 1, (1000,), generator=gen,
                           device=dev, dtype=torch.int32)
     for n, b in ((1, 77), (1001, 77), (4097, 1000), (0, 77)):
@@ -586,7 +612,8 @@ def _profile(run, top=8, tries=3):
     the top kernels by device time. The capture is held to the wrappers'
     own launch counts: one that recorded another number of csrc kernel
     launches than the wrappers made in that run is taken again, up to
-    `tries` times, and then reported as not measured."""
+    `tries` times, and then reported as not measured, with the wrappers
+    whose launches it lost and its top kernels as captured."""
     import torch
     from radixhashjoin_tpu_torch import kernels
     from torch.profiler import ProfilerActivity, profile
@@ -609,16 +636,24 @@ def _profile(run, top=8, tries=3):
                 rows.append((dt, ev.key, ev.count))
         if not rows:
             return "not measured (profiler recorded no device time)"
-        made = sum(kernels.LAUNCHES[k] - before[k] for k in before)
-        names = tuple(f"(anonymous namespace)::{f}("
-                      for fns in CSRC_KERNELS.values() for f in fns)
-        captured = sum(c for _, k, c in rows if k.startswith(names))
-        seen.append([captured, made])
-        if captured == made:
+        made = {k: kernels.LAUNCHES[k] - before[k] for k in CSRC_KERNELS}
+        got = {k: sum(c for _, name, c in rows if name.startswith(tuple(
+            f"(anonymous namespace)::{f}(" for f in fns)))
+            for k, fns in CSRC_KERNELS.items()}
+        seen.append([sum(got.values()), sum(made.values())])
+        if got == made:
             break
+        # which wrapper's launches the capture lost
+        seen[-1].append({k: [got[k], made[k]] for k in made
+                         if got[k] != made[k]})
     else:
-        return (f"not measured (the capture missed csrc kernel launches: "
-                f"[captured, made] per try {seen})")
+        rows.sort(reverse=True)
+        return {"status": "not measured: the capture missed csrc kernel "
+                          "launches",
+                "csrc_launches_captured_made": seen,
+                "top_as_captured": [{"kernel": k[:80], "device_us": dt,
+                                     "calls": c}
+                                    for dt, k, c in rows[:top]]}
     rows.sort(reverse=True)
     return {"wall_s_profiled": wall_s,
             "device_us_total": sum(r[0] for r in rows),
@@ -900,6 +935,174 @@ def _triangle(rng, dev, n):
     return [line, batch]
 
 
+# ---- phase 4b: huge nodes (past 2^28 rows, the windowed pass) ----
+
+def _relation(cols):
+    """A Relation whose load-time stats (min, max, distinct) come from one
+    bincount a column, where the default computes np.unique: the same
+    numbers in O(n) for the huge phase's columns, whose values are all
+    below 2^20."""
+    from radixhashjoin_tpu_torch.storage import ColumnStats, Relation
+    rel = Relation(cols, compute_stats=False)
+    stats = []
+    for c in cols:
+        nz = np.flatnonzero(np.bincount(c.astype(np.intp)))
+        stats.append(ColumnStats(int(nz[0]), int(nz[-1]), len(nz)))
+    rel.set_stats(stats)
+    return rel
+
+
+def _huge_run(name, rels, q, expected, n_fact, n_tuples, bytes_per_row, dev,
+              wsort):
+    """One query whose fact node is past _BIG_WAVE_ROWS, under
+    ftree_window_sort=`wsort`: first run (launch counts from zero: the
+    main path of this phase), three warm runs, peak memory, the sync
+    check, a profiled run, and the warm wall against the bound of the
+    bytes the fused window pass must read (`bytes_per_row` a fact row,
+    once, over 3.35 TB/s); exact against `expected`. Fails unless the
+    build and lookup ran at least once a window."""
+    import torch
+    from radixhashjoin_tpu_torch import kernels
+    from radixhashjoin_tpu_torch.bench_tables import bound_ms
+    from radixhashjoin_tpu_torch.config import EngineConfig
+    from radixhashjoin_tpu_torch.models.engine import Engine
+    from radixhashjoin_tpu_torch.ops import factorized
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    eng = Engine(rels, EngineConfig(ftree_window_sort=wsort), device=dev)
+    t0 = time.perf_counter()
+    got = eng.run_workload([[q]])
+    first_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if got != expected:
+        raise AssertionError(f"{name} {wsort}: {got} != oracle {expected}")
+    if eng.batch_executor.counters["ftree_queries"] != 1:
+        raise AssertionError(f"{name}: not on the factorized path")
+    windows = -(-n_fact // factorized._win_rows())
+    if dev.type == "cuda" and min(launches[k] for k in WAVE_KERNELS) < windows:
+        raise AssertionError(f"{name} {wsort}: fewer launches than the "
+                             f"{windows} windows: {launches}")
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        if eng.run_workload([[q]]) != expected:
+            raise AssertionError(f"{name} {wsort}: warm rerun differs")
+        warm.append(time.perf_counter() - t0)   # ends in a readback
+    warm_s = float(np.median(warm))
+    bound = bound_ms(bytes_per_row * n_fact)
+    line = {"phase": "huge", "cell": name, "wsort": wsort,
+            "fact_rows": n_fact, "join_input_tuples": n_tuples,
+            "windows": windows, "window_rows": factorized._win_rows(),
+            "first_run_s": first_s, "warm_query_s": warm,
+            "tuples_per_s": n_tuples / warm_s, "launches": launches,
+            "bytes_per_fact_row": bytes_per_row, "bytes_bound_ms": bound,
+            "bytes_bound_share": bound / (warm_s * 1e3), "exact": True}
+    if dev.type == "cuda":
+        line["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        # the span of a warm run on the card's clock (CUDA events)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        eng.run_workload([[q]])
+        ev[1].record()
+        torch.cuda.synchronize()
+        line["event_ms"] = ev[0].elapsed_time(ev[1])
+        line["sync_check"] = _sync_check(eng, lambda: eng.run_workload([[q]]))
+        line["device_profile"] = _profile(lambda: eng.run_workload([[q]]),
+                                          top=10)
+    del eng
+    return line, launches
+
+
+def _free(dev):
+    import gc
+
+    import torch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_huge(dev, zipf_rows=HUGE_ZIPF_ROWS, star_rows=HUGE_STAR_ROWS,
+               n_keys=DIM_KEYS, wsorts=HUGE_WSORTS):
+    """Facts past the 2^28-row huge-node threshold through
+    Engine.run_workload: the Zipf join of phase 4 at 2^29 + 12345 rows
+    and the star of scripts/bench_scale.py:315-349 (Zipf key 1, uniform
+    key 2, three sums) at 2^29 + 4099 rows, each against its closed-form
+    NumPy oracle under every sorted-window policy of `wsorts`. Returns
+    the lines and the launches of their first runs, summed."""
+    from radixhashjoin_tpu_torch.workload import (FilterPred, JoinPred,
+                                                  Projection, Query)
+    rng = np.random.default_rng(29)
+    lines, total = [], {}
+
+    def run(*args):
+        for ws in wsorts:
+            line, launches = _huge_run(*args, dev, ws)
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            lines.append(line)
+            print(json.dumps(line))
+            _free(dev)
+
+    # the Zipf join of phase 4 (scripts/bench_scale.py:253-279), past
+    # 2^29 rows with a ragged tail; the fused pass reads the key (4 B) and
+    # the uint16 plane (2 B) of a fact row (bench_scale.py:312)
+    t0 = time.perf_counter()
+    u = rng.random(zipf_rows) + 1e-12
+    zk = np.minimum(u ** (-1.0 / 0.1), n_keys - 1).astype(np.uint64)
+    del u
+    pay = rng.integers(0, 1000, zipf_rows).astype(np.uint64)
+    dval = rng.integers(0, 1000, n_keys).astype(np.uint64)
+    keep = dval < 900
+    wk = keep[zk.astype(np.intp)]
+    exp0 = int(pay[wk].sum(dtype=np.uint64))
+    cnt = np.bincount(zk[wk].astype(np.intp), minlength=n_keys)
+    exp1 = int((dval * cnt.astype(np.uint64) * keep).sum(dtype=np.uint64))
+    del wk, cnt
+    rels = [_relation([zk, pay]),
+            _relation([np.arange(n_keys, dtype=np.uint64), dval])]
+    print(json.dumps({"phase": "huge", "cell": "zipf_huge",
+                      "setup_s": time.perf_counter() - t0}))
+    q = Query([0, 1], [JoinPred(0, 0, 1, 0)], [FilterPred(1, 1, "<", 900)],
+              [Projection(0, 1), Projection(1, 1)])
+    run("zipf_huge", rels, q, [f"{exp0} {exp1}"], zipf_rows,
+        zipf_rows + n_keys, 6)
+    del rels, zk, pay
+    _free(dev)
+
+    # the star at config-5 scale (scripts/bench_scale.py:315-349): key1 +
+    # key2 (4 B each) + the uint16 plane (2 B) a fact row (:358)
+    t0 = time.perf_counter()
+    u = rng.random(star_rows) + 1e-12
+    k1 = np.minimum(u ** (-1.0 / 0.1), n_keys - 1).astype(np.uint64)
+    del u
+    k2 = rng.integers(0, n_keys, star_rows).astype(np.uint64)
+    fv = rng.integers(0, 1000, star_rows).astype(np.uint64)
+    d1v = rng.integers(0, 1000, n_keys).astype(np.uint64)
+    d2v = rng.integers(0, 1000, n_keys).astype(np.uint64)
+    live = (d1v < 900)[k1.astype(np.intp)]
+    exp = [int(fv[live].sum(dtype=np.uint64)),
+           int(d1v[k1[live].astype(np.intp)].sum(dtype=np.uint64)),
+           int(d2v[k2[live].astype(np.intp)].sum(dtype=np.uint64))]
+    del live
+    keys = np.arange(n_keys, dtype=np.uint64)
+    rels = [_relation([k1, k2, fv]), _relation([keys, d1v]),
+            _relation([keys, d2v])]
+    print(json.dumps({"phase": "huge", "cell": "star_huge",
+                      "setup_s": time.perf_counter() - t0}))
+    q = Query([0, 1, 2], [JoinPred(0, 0, 1, 0), JoinPred(0, 1, 2, 0)],
+              [FilterPred(1, 1, "<", 900)],
+              [Projection(0, 2), Projection(1, 1), Projection(2, 1)])
+    run("star_huge", rels, q, [" ".join(map(str, exp))], star_rows,
+        star_rows + 2 * n_keys, 10)
+    del rels, k1, k2, fv
+    _free(dev)
+    return lines, total
+
+
 # ---- phase 5: the kernel shootout ----
 
 def phase_shootout(dev, log_rows=SHOOTOUT_LOG_ROWS):
@@ -949,6 +1152,13 @@ def main() -> int:
     launches = phase_cli(dev)
     phase_fallback_cli(dev)
     phase_scale(dev)
+    _lines, launches_huge = phase_huge(dev)
+    if min(launches_huge[k] for k in WAVE_KERNELS) == 0:
+        raise AssertionError(f"the huge phase skipped a kernel: "
+                             f"{launches_huge}")
+    # the wave's kernels on both main-path runs: the CLI's and the huge
+    # phase's first runs, each counted from zero
+    launches = {k: launches[k] + launches_huge.get(k, 0) for k in launches}
     launches_radix = phase_shootout(dev)
     for pkg in ("jax", "radixhashjoin_tpu"):
         if pkg in sys.modules:

@@ -56,12 +56,18 @@ class EngineConfig:
     # written-order parity
     enable_join_reordering: bool = False
 
+    # sorted windows in the huge-node passes (ops/factorized.py
+    # _fused_node_pass): "off"; "on" sorts every window once by its
+    # most-consumed key column; "mono" only in passes of at most two
+    # operands; "auto" is the policy the card's A/B picked
+    # (models/batch.py _AUTO_WSORT, PERF.md)
+    ftree_window_sort: str = "auto"
+
     # --- settings that need unported code (non-defaults raise) ---
     force_oracle: bool = False
     # every factorized query of a round runs in ONE level-batched wave
     ftree_wave: bool = True
     stage_group: Optional[int] = None
-    ftree_window_sort: str = "auto"
     profile: bool = False
     mesh_devices: Optional[int] = None
 
@@ -79,8 +85,6 @@ _UNPORTED = {
                             "on the H100 decides them (item 11)"),
     "stage_group": ((None,), "rounds of grouped queries, kept out until "
                              "an A/B on the H100 decides them (item 11)"),
-    "ftree_window_sort": (("auto", "off"),
-                          "the huge-node sorted windows (item 6)"),
     "profile": ((False,), "the per-operator profiler (item 12)"),
 }
 
@@ -95,6 +99,9 @@ def check_config(config: EngineConfig) -> None:
                 f"not ported yet (ROADMAP.md, 'Modules to port')")
     if config.join_backend not in ("auto", "dense", "sort"):
         raise ValueError(f"unknown join_backend {config.join_backend!r}")
+    if config.ftree_window_sort not in ("auto", "on", "off", "mono"):
+        raise ValueError(f"unknown ftree_window_sort "
+                         f"{config.ftree_window_sort!r}")
 
 
 DEFAULT = EngineConfig()

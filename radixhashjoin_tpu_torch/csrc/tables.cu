@@ -13,7 +13,9 @@
 //
 // rhj_weighted_bincount — replaces the Pallas kernel
 //   radixhashjoin_tpu/ops/tables.py:283 weighted_bincount_onehot
-//   (kernel _whist_kernel :260). out[b] += sum of w[i] over idx[i] == b;
+//   (kernel _whist_kernel :260), and, adding into an accumulator, the
+//   per-window builds of radixhashjoin_tpu/ops/tables.py:339
+//   scatter_add_window. out[b] += sum of w[i] over idx[i] == b;
 //   indices outside [0, n_bins) are dropped (the wave's mask sentinel,
 //   negatives included) and zero-weight rows issue nothing.
 //   Bound on this card: the streaming read of idx and w (8 bytes a row)
@@ -321,7 +323,9 @@ long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
 
 }  // namespace
 
-// out must hold n_bins zeros on entry; n >= 1, n_bins >= 1.
+// Adds into out (n_bins int32s): every write to it, in both kernels, is an
+// atomicAdd, so out may hold an earlier window's partial table (the
+// huge-node window loops of ops/factorized.py); n >= 1, n_bins >= 1.
 extern "C" int rhj_weighted_bincount(const int* idx, const int* w,
                                      long long n, int* out, int n_bins,
                                      int sm_count, void* stream) {

@@ -28,7 +28,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -159,10 +159,13 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def weighted_bincount_cuda(idxs: torch.Tensor, weights: torch.Tensor,
-                           n_bins: int) -> torch.Tensor:
-    """int32[n_bins]: out[b] = sum of weights[i] over idxs[i] == b, indices
-    outside [0, n_bins) dropped. Caller contract: weights >= 0 and every
-    per-bin total < 2**31."""
+                           n_bins: int, out: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """int32[n_bins]: out[b] += sum of weights[i] over idxs[i] == b,
+    indices outside [0, n_bins) dropped; `out` is a new zero table unless
+    the caller passes its accumulator (int32[n_bins] on idxs' card, which
+    the kernel adds into and returns). Caller contract: weights >= 0 and
+    every bin's total, accumulator included, < 2**31."""
     _check("idxs", idxs)
     _check("weights", weights)
     if weights.shape != idxs.shape or weights.device != idxs.device:
@@ -170,7 +173,13 @@ def weighted_bincount_cuda(idxs: torch.Tensor, weights: torch.Tensor,
     n_bins = int(n_bins)
     if not 0 <= n_bins < 2**31:
         raise ValueError(f"n_bins out of range: {n_bins}")
-    out = torch.zeros(n_bins, dtype=torch.int32, device=idxs.device)
+    if out is None:
+        out = torch.zeros(n_bins, dtype=torch.int32, device=idxs.device)
+    else:
+        _check("out", out)
+        if out.shape[0] != n_bins or out.device != idxs.device:
+            raise ValueError(f"out: expected {n_bins} bins on {idxs.device}, "
+                             f"got {out.shape[0]} on {out.device}")
     n = idxs.shape[0]
     if n == 0 or n_bins == 0:
         return out

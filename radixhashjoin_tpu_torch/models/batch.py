@@ -61,6 +61,10 @@ from .stats import estimate_join_output, seed_stats
 _RETRY = object()
 _UNPLANNED = object()
 
+# what ftree_window_sort="auto" resolves to: chosen by the same-call A/B
+# of "off", "mono" and "on" on the H100 (PERF.md §6)
+_AUTO_WSORT = "off"
+
 
 def _combine(kind, seg) -> int:
     """Exact u64 of one packed partial (ops/stage.py part_shape): a
@@ -129,6 +133,14 @@ class BatchExecutor:
             kind = ("dense" if self.catalog.domain <= config.max_dense_domain
                     else "sort")
         self.join = JoinBackend(kind, self.catalog.domain)
+
+    def _resolve_wsort(self) -> str:
+        """The sorted-window policy of the huge-node passes
+        (config.ftree_window_sort). The reference's "auto" is keyed to
+        TPU device kinds; the port's is _AUTO_WSORT, the policy the card's
+        A/B picked."""
+        ws = self.config.ftree_window_sort
+        return _AUTO_WSORT if ws == "auto" else ws
 
     # ---- per-op phases (sort backend / fusion off) ----
 
@@ -232,7 +244,7 @@ class BatchExecutor:
                 else:
                     plane_n.append(0)
                     continue
-                planes = cat.proj_planes(q.slots[p.slot], p.col)
+                planes = cat.int32_planes(q.slots[p.slot], p.col)
                 vmaxes = cat.plane_maxes(q.slots[p.slot], p.col)
                 plane_n.append(len(planes))
                 for (plane, sh), vmax in zip(planes, vmaxes):
@@ -314,7 +326,7 @@ class BatchExecutor:
             st.sums.append([
                 ("limb", gather_partials_matrix(plane, st.mat, row,
                                                 st.icount), sh)
-                for plane, sh in cat.proj_planes(st.q.slots[p.slot], p.col)])
+                for plane, sh in cat.int32_planes(st.q.slots[p.slot], p.col)])
 
     # ---- speculative expansion sizing (models/stats.py estimator) ----
 
@@ -960,7 +972,7 @@ class BatchExecutor:
                 for idx, p in enumerate(q.projections):
                     spec = nz.get(p.slot)
                     if spec is not None:
-                        planes = cat.proj_planes(q.slots[p.slot], p.col)
+                        planes = cat.int32_planes(q.slots[p.slot], p.col)
                         vmaxes = cat.plane_maxes(q.slots[p.slot], p.col)
                         for (plane, sh), vmax in zip(planes, vmaxes):
                             if spec == "fresh":
@@ -986,7 +998,7 @@ class BatchExecutor:
                     excl = tuple(e["mult_row"] for e in st.defers
                                  if e is not d)
                     d_mult = cat.max_mult(*d["key_ids"])
-                    planes = cat.proj_planes(q.slots[p.slot], p.col)
+                    planes = cat.int32_planes(q.slots[p.slot], p.col)
                     vmaxes = cat.plane_maxes(q.slots[p.slot], p.col)
                     for (plane, sh), vmax in zip(planes, vmaxes):
                         ch = channel_spec(d_mult, vmax)
@@ -1092,7 +1104,7 @@ class BatchExecutor:
             for idx, p in enumerate(q.projections):
                 row = st.slot_row.get(p.slot)
                 if row is not None:
-                    for plane, sh in cat.proj_planes(q.slots[p.slot],
+                    for plane, sh in cat.int32_planes(q.slots[p.slot],
                                                      p.col):
                         if mult_rows:
                             plan.append(("project_w", mi, row, mult_rows))
@@ -1106,7 +1118,7 @@ class BatchExecutor:
                     excl = tuple(e["mult_row"] for e in st.defers
                                  if e is not d)
                     d_mult = cat.max_mult(*d["key_ids"])
-                    planes = cat.proj_planes(q.slots[p.slot], p.col)
+                    planes = cat.int32_planes(q.slots[p.slot], p.col)
                     vmaxes = cat.plane_maxes(q.slots[p.slot], p.col)
                     for (plane, sh), vmax in zip(planes, vmaxes):
                         ch = channel_spec(d_mult, vmax)
@@ -1192,7 +1204,7 @@ class BatchExecutor:
             tuple(probes_in), tuple(cols), tuple(vals), tuple(plan),
             self.catalog.domain, tuple(keep_slots), tuple(keep_mats),
             tuple(keep_probes), self.config.ftree_scatter,
-            self.config.ftree_gather)
+            self.config.ftree_gather, self._resolve_wsort())
         vid = len(vecs)
         vecs.append(packed)
         slot_new = dict(zip(keep_slots, zip(lr_k, lc_k)))

@@ -9,15 +9,19 @@ reuses them. The encoding is the reference's, array for array:
   order-preserving global dictionary of the catalog's u64 values
   (`_build_dictionary`), so equality and order of codes are those of
   the values and filter constants translate exactly (`encode_filter`);
-* a projected column is summed as int32 planes (`proj_planes`): the
-  values when they fit int32, else 16-bit slices combined on the host
-  with shifts mod 2**64;
+* a projected column is summed as planes (`proj_planes`): the values
+  when they fit int32, else 16-bit slices combined on the host with
+  shifts mod 2**64; a relation of more than _NARROW_PLANE_MIN_ROWS rows
+  stores a plane whose values fit 16 bits as uint16 (half the bytes,
+  and the factorized wave's folds read it zero-extended), while the
+  materialized paths, which look planes up by row id, take int32 copies
+  (`int32_planes`);
 * composite (multi-column) tree-edge keys get shared pair codes
   (`edge_key`), and a pristine leaf's message table comes precomputed
   (`bincount_table`, `edge_bincount`).
 
-Not ported: the row-sharded layout of the distributed executor and the
-uint16 planes of huge single-chip nodes (ROADMAP.md).
+Not ported: the row-sharded layout of the distributed executor
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -38,6 +42,13 @@ NARROW_MAX = 2**31 - 2
 
 _INT32_MAX = 2**31 - 1
 
+# Projection planes of relations above this many rows store as uint16
+# when their values fit 16 bits: at 2**29 rows an int32 plane takes 2 GB,
+# a uint16 one 1 GB. Read at call time so that tests can shrink it.
+_NARROW_PLANE_MIN_ROWS = 1 << 28
+
+_UPLOAD_DTYPES = (np.int32, np.uint16)
+
 
 class DeviceCatalog:
     def __init__(self, relations: Sequence[Relation],
@@ -48,6 +59,7 @@ class DeviceCatalog:
         self.device = torch.device(device)
         self._cols: Dict[tuple, torch.Tensor] = {}
         self._planes: Dict[tuple, list] = {}
+        self._wide_planes: Dict[tuple, list] = {}
         self._edge_keys: Dict[tuple, tuple] = {}
         self._edge_mults: Dict[tuple, int] = {}
         self._edge_bincounts: Dict[tuple, torch.Tensor] = {}
@@ -64,9 +76,11 @@ class DeviceCatalog:
             self._build_dictionary()
 
     def _put(self, host: np.ndarray) -> torch.Tensor:
-        """Upload one int32 host array to the catalog's device."""
-        if host.dtype != np.int32:
-            raise TypeError(f"catalog uploads int32 only, got {host.dtype}")
+        """Upload one int32 (or uint16 plane) host array to the catalog's
+        device."""
+        if host.dtype not in _UPLOAD_DTYPES:
+            raise TypeError(f"catalog uploads int32 and uint16 only, got "
+                            f"{host.dtype}")
         return torch.from_numpy(np.ascontiguousarray(host)).to(self.device)
 
     # ---- dictionary ----
@@ -94,6 +108,13 @@ class DeviceCatalog:
         key = (rel_id, col)
         if key not in self._cols:
             self._cols[key] = self._put(self._host_codes(rel_id, col))
+            if (self.dict_vals is None and key in self._planes
+                    and self._planes[key][0][0].dtype == torch.uint16):
+                # a projection uploaded a uint16 plane before a join or
+                # filter needed the int32 column: the plane becomes the
+                # column (the same values), so the column is not resident
+                # twice
+                self._planes[key] = [(self._cols[key], 0)]
         return self._cols[key]
 
     def encode_filter(self, op: str, value: int) -> Tuple[int, int]:
@@ -121,28 +142,58 @@ class DeviceCatalog:
 
     def proj_planes(self, rel_id: int, col: int
                     ) -> List[Tuple[torch.Tensor, int]]:
-        """[(int32 device plane, shift)] whose shifted sums add up to the
-        exact u64 SUM of the original column: one plane of the values when
-        they fit int32, else 16-bit slices."""
+        """[(device plane, shift)] whose shifted sums add up to the exact
+        u64 SUM of the original column: one plane of the values when they
+        fit int32, else 16-bit slices. Planes are int32, or uint16 on a
+        relation of more than _NARROW_PLANE_MIN_ROWS rows where the
+        plane's values fit 16 bits."""
         key = (rel_id, col)
         if key not in self._planes:
             rel = self.relations[rel_id]
+            huge = rel.num_tuples > _NARROW_PLANE_MIN_ROWS
+            narrow = huge and rel.stats[col].max < (1 << 16)
             if self.dict_vals is None:
-                # identity encoding: the join/filter column IS the values
-                self._planes[key] = [(self.col(rel_id, col), 0)]
+                if narrow and key not in self._cols:
+                    # a uint16 copy only while no join or filter holds the
+                    # int32 column (col() re-aliases the plane if one
+                    # comes later); else the column itself costs nothing
+                    self._planes[key] = [(self._put(
+                        rel.values[col].astype(np.uint16)), 0)]
+                else:
+                    # identity encoding: the join/filter column IS the
+                    # values
+                    self._planes[key] = [(self.col(rel_id, col), 0)]
             elif rel.stats[col].max <= _INT32_MAX:
+                dt = np.uint16 if narrow else np.int32
                 self._planes[key] = [(self._put(
-                    rel.values[col].astype(np.int32)), 0)]
+                    rel.values[col].astype(dt)), 0)]
             else:
                 host = rel.values[col]
                 hi = int(rel.stats[col].max).bit_length()
+                dt = np.uint16 if huge else np.int32
                 planes = []
                 for shift in range(0, hi, 16):
                     p = ((host >> np.uint64(shift))
-                         & np.uint64(0xFFFF)).astype(np.int32)
+                         & np.uint64(0xFFFF)).astype(dt)
                     planes.append((self._put(p), shift))
                 self._planes[key] = planes
         return self._planes[key]
+
+    def int32_planes(self, rel_id: int, col: int
+                     ) -> List[Tuple[torch.Tensor, int]]:
+        """proj_planes with every uint16 plane as int32 (cached): the
+        materialized paths look planes up by row id, and PyTorch's
+        index_select has no uint16 kernel."""
+        planes = self.proj_planes(rel_id, col)
+        if all(p.dtype == torch.int32 for p, _s in planes):
+            return planes
+        if self.dict_vals is None:
+            return [(self.col(rel_id, col), 0)]      # re-aliases the plane
+        key = (rel_id, col)
+        if key not in self._wide_planes:
+            self._wide_planes[key] = [(p.to(torch.int32), s)
+                                      for p, s in planes]
+        return self._wide_planes[key]
 
     # ---- composite (tuple) join keys ----
     #
@@ -223,8 +274,14 @@ class DeviceCatalog:
         key = (rel_id, col)
         if key not in self._max_mult:
             vals = self.relations[rel_id].values[col]
+            vmax = self.relations[rel_id].stats[col].max
             if len(vals) == 0:
                 self._max_mult[key] = 1
+            elif vmax < max(len(vals), 1 << 20):
+                # values below the row count: one O(n) bincount, not
+                # np.unique's sort (2**29-row columns)
+                self._max_mult[key] = int(
+                    np.bincount(vals.astype(np.intp)).max())
             else:
                 _, counts = np.unique(vals, return_counts=True)
                 self._max_mult[key] = int(counts.max())

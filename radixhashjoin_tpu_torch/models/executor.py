@@ -189,7 +189,7 @@ class TorchExecutor:
                 sums.append(0)
                 continue
             parts = []
-            for plane, shift in self.catalog.proj_planes(q.slots[p.slot],
+            for plane, shift in self.catalog.int32_planes(q.slots[p.slot],
                                                          p.col):
                 self.counters["readbacks"] += 1
                 parts.append((sum_column_over_rows(plane, rows, icount),

@@ -24,24 +24,39 @@ NULL semantics, the boolean semiring of flag-only trees, the masked-row
 sentinel, the trailing-selection gates and the spec layout are the
 reference's, unchanged: its module docstring is the spec (spec =
 (filts, n_sels, edges, flag_nodes, root, projs, trail, tsels), and the
-column/value consumption order). Sums differ only in representation:
-one int64 per projection plane (utils/limbs.py), not a (5, 3) limb fold.
+column/value consumption order), except that each `projs` entry is
+(node, plane_bits) as the planner emits it: plane_bits is the plane's
+static value-bit bound, which sorted windows read. Sums differ only in
+representation: one int64 per projection plane (utils/limbs.py), not a
+(5, 3) limb fold.
 
-Ported: the non-huge branches. A node of more than _BIG_WAVE_ROWS rows
-needs the windowed huge-node pass (_Lazy, _fused_node_pass,
-_scatter_add_big), which is not ported yet and raises.
+HUGE NODES (more than _BIG_WAVE_ROWS rows) never get a full-length
+message lookup or weight product. A message lookup on a huge node stays
+an unevaluated factor (`_Lazy`), and everything that consumes it runs
+window by window over the node's rows: the builds of the node's message
+tables (adding into one running table per edge, tables.py
+`scatter_add_window`), its projection folds and its root NULL flag,
+all in ONE window loop per node (`_fused_node_pass`) that evaluates each
+shared lookup once per window. The windows run as a host loop whose
+bounds come from shapes, with a short last window (int64 sums and
+additive builds need no overlap), and nothing in it reads the device.
+Sorted windows (wsort "on", or "mono" for passes of at most two
+operands) sort each window once by its most-consumed key column,
+bit-packing the other operands into the sort word where their static
+bit bounds allow, and carry the rest through the permutation.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..utils.limbs import fold_segments
+from ..utils.limbs import fold_segments, fold_window, weighted_partials_big
 from .filter import OP_EQ, OP_LT
-from .tables import scatter_table, table_gather
+from .tables import scatter_add_window, scatter_table, table_gather
 
-# nodes above this many rows need the reference's windowed huge-node
-# pass (not ported); read at call time so tests can monkeypatch it
+# nodes and waves past this many rows take the windowed huge-node paths
+# (lazy lookups, fused window passes, in-place folds); read at call time
+# so that tests can shrink it
 _BIG_WAVE_ROWS = 1 << 28
 
 
@@ -49,20 +64,12 @@ class _Tree:
     """Per-spec state inside a wave."""
 
     __slots__ = ("spec", "edges", "flag_nodes", "root", "projs",
+                 "plane_bits",
                  "mask", "msg_mask", "tnode", "tnode_b", "tborn", "twidth",
                  "tsel_a", "tsel_b",
                  "pkey", "ckey", "pre", "children", "boolean",
                  "beta", "contrib", "alpha", "planes",
-                 "by_height", "by_depth")
-
-
-def _node_rows_ok(c: torch.Tensor) -> torch.Tensor:
-    if c.shape[0] > _BIG_WAVE_ROWS:
-        raise NotImplementedError(
-            f"a node of {c.shape[0]} rows exceeds _BIG_WAVE_ROWS="
-            f"{_BIG_WAVE_ROWS}: the huge-node windowed pass is not ported "
-            f"yet (ROADMAP.md, 'Modules to port' item 6)")
-    return c
+                 "by_height", "by_depth", "done_folds", "done_flag")
 
 
 def _parse_spec(spec, cols, vals):
@@ -79,12 +86,6 @@ def _parse_spec(spec, cols, vals):
     t.projs = projs
     ci = vi = 0
 
-    def node_col():
-        nonlocal ci
-        c = _node_rows_ok(cols[ci])
-        ci += 1
-        return c
-
     def next_col():
         nonlocal ci
         c = cols[ci]
@@ -96,7 +97,7 @@ def _parse_spec(spec, cols, vals):
     for i in range(k):
         m = None
         for opc in filts[i]:
-            c = node_col()
+            c = next_col()
             v = vals[vi]
             vi += 1
             if opc == OP_EQ:
@@ -107,8 +108,8 @@ def _parse_spec(spec, cols, vals):
                 tt = c > v
             m = tt if m is None else m & tt
         for _ in range(n_sels[i]):
-            a = node_col()
-            b = node_col()
+            a = next_col()
+            b = next_col()
             tt = a == b
             m = tt if m is None else m & tt
         mask.append(m)           # None == all rows live
@@ -123,34 +124,37 @@ def _parse_spec(spec, cols, vals):
         # cross-node pair gate (trailing composite-key fusion): this spec
         # only decides NULL, so its messages stay unmasked
         t.tnode, t.tborn, t.twidth, t.tnode_b = trail
-        t.tsel_a = node_col()
-        t.tsel_b = node_col()
+        t.tsel_a = next_col()
+        t.tsel_b = next_col()
     elif trail is not None:
         t.tnode, t.tborn, t.twidth = trail
-        t.tsel_a = node_col()
-        t.tsel_b = node_col()
+        t.tsel_a = next_col()
+        t.tsel_b = next_col()
         tsel = t.tsel_a == t.tsel_b
         t.msg_mask[t.tnode] = (tsel if mask[t.tnode] is None
                                else mask[t.tnode] & tsel)
 
     # additional trailing selections: final-multiset masks only
     for node in tsels:
-        a = node_col()
-        b = node_col()
+        a = next_col()
+        b = next_col()
         eq = a == b
         t.msg_mask[node] = (eq if t.msg_mask[node] is None
                             else t.msg_mask[node] & eq)
 
     t.pkey, t.ckey = [], []
     for _e in edges:
-        t.pkey.append(node_col())
-        t.ckey.append(node_col())
+        t.pkey.append(next_col())
+        t.ckey.append(next_col())
     t.pre = []
     for (_p, _c, pre_flag, _nd, w) in edges:
         # precomputed bincounts are catalog-domain long; the edge spans
         # only its own width (codes <= width - 1, so slicing drops nothing)
         t.pre.append(next_col()[:w] if pre_flag else None)
-    t.planes = [node_col() for _proj in projs]
+    t.planes = [next_col() for _proj in projs]
+    # static value-bit bound of each plane (31 = unknown), which lets a
+    # sorted window pack the plane into its sort word
+    t.plane_bits = [(b[0] if b else 31) for (_i, *b) in projs]
 
     t.children = {i: [] for i in range(k)}
     for ei, (p, _c, _pre, _nd, _w) in enumerate(edges):
@@ -161,6 +165,8 @@ def _parse_spec(spec, cols, vals):
     t.beta = [None] * k
     t.alpha = [None] * k
     t.contrib = [None] * len(edges)
+    t.done_folds = {}        # projection index -> int64 sum of a fused pass
+    t.done_flag = None       # any(weight > 0) from a fused pass
 
     # static schedules: height(e) = 1 + max height of the child node's
     # incoming edges (bottom-up edge order makes this one sweep)
@@ -194,13 +200,436 @@ def _none_anywhere(x: torch.Tensor) -> torch.Tensor:
     return ~torch.any(x)
 
 
-def _mul(a, b):
-    """Product of None | int32 vector weights (None == all ones)."""
+# ---- the huge-node machinery ----
+
+def _win_rows() -> int:
+    """Rows per window of every huge-node loop; min() lets tests shrink
+    it through _BIG_WAVE_ROWS."""
+    return min(1 << 26, _BIG_WAVE_ROWS)
+
+
+def _win_guard(n: int) -> None:
+    """The reference's window addressing is int32 and caps a node below
+    2**31 - 2**26 rows; the port keeps the same cap and error."""
+    if n >= (1 << 31) - (1 << 26):
+        raise ValueError(
+            f"huge-node window loops cap below 2**31 rows (int32 window "
+            f"addressing); got {n}")
+
+
+def _windows(n: int, w_rows: int):
+    """(start, size) of every window over n rows: full windows, then a
+    short last one."""
+    return [(s, min(w_rows, n - s)) for s in range(0, n, w_rows)]
+
+
+def _slice_cached(arr, start, size, cache):
+    """Rows [start, start + size) of arr: the permuted copy a sorted
+    window carried through its sort, else a view."""
+    if cache is not None:
+        s = cache.get(("s", id(arr)))
+        if s is not None:
+            return s
+    return arr[start:start + size]
+
+
+def _ones(size: int, device) -> torch.Tensor:
+    return torch.ones(size, dtype=torch.int32, device=device)
+
+
+class _Lazy:
+    """An unevaluated per-row weight over a HUGE node: the elementwise
+    product of window-evaluable factors.
+
+      ("gather", table, keys, off, clamp, kbits) — table[keys + off],
+          clamped to 0/1 for boolean trees; kbits bounds the key values
+          (the edge width's bits), for the sorted-window packer
+      ("mat", vec)   — an already-materialized int32 vector
+      ("mask", bvec) — boolean; False rows weigh 0
+
+    Every consumer evaluates it window by window: the projection folds
+    (weighted_partials_big's weight_fn), the window builds
+    (_scatter_add_big, _fused_node_pass) and the emptiness flags
+    (_lazy_any_positive), so no full-length lookup or product exists.
+    Products stay int32-exact under the planner's overflow caps
+    (models/batch.py:_ftree_caps), as on the materialized path."""
+
+    __slots__ = ("n", "factors")
+
+    def __init__(self, n, factors):
+        _win_guard(n)
+        self.n = n
+        self.factors = list(factors)
+
+    @classmethod
+    def gather(cls, table, keys, off, clamp, kbits):
+        return cls(keys.shape[0],
+                   [("gather", table, keys, int(off), bool(clamp),
+                     int(kbits))])
+
+    def with_mask(self, bvec):
+        return (self if bvec is None
+                else _Lazy(self.n, self.factors + [("mask", bvec)]))
+
+    @property
+    def device(self):
+        f = self.factors[0]
+        return (f[2] if f[0] == "gather" else f[1]).device
+
+    def _parts(self, start, size, cache=None):
+        """(window values, is_bool) per factor; a gather evaluated once
+        per window cache is reused by every consumer sharing it."""
+        for f in self.factors:
+            if f[0] == "gather":
+                _tag, table, keys, off, clamp = f[:5]
+                ck = ("g", id(table), id(keys), off, clamp)
+                if cache is not None and ck in cache:
+                    yield cache[ck], clamp
+                    continue
+                k = _slice_cached(keys, start, size, cache)
+                g = table_gather(table, k + off if off else k)
+                if clamp:
+                    g = g > 0
+                if cache is not None:
+                    cache[ck] = g
+                yield g, clamp
+            elif f[0] == "mat":
+                yield _slice_cached(f[1], start, size, cache), False
+            else:
+                yield _slice_cached(f[1], start, size, cache), True
+
+    def window(self, start, size, cache=None):
+        """int32 weights of rows [start, start + size). `cache`: the
+        per-window store shared by the consumers of one fused pass."""
+        w = msk = None
+        for g, is_bool in self._parts(start, size, cache):
+            if is_bool:
+                msk = g if msk is None else msk & g
+            else:
+                w = g if w is None else w * g
+        if w is None:
+            return (_ones(size, self.device) if msk is None
+                    else msk.to(torch.int32))
+        return w if msk is None else torch.where(msk, w, 0)
+
+    def pos_window(self, start, size):
+        """bool window: weight > 0 (factors are nonnegative, so the
+        product is positive iff every factor is)."""
+        p = None
+        for g, is_bool in self._parts(start, size):
+            t = g if is_bool else g > 0
+            p = t if p is None else p & t
+        return (torch.ones(size, dtype=torch.bool, device=self.device)
+                if p is None else p)
+
+
+def _mat(x):
+    """Materialize full length: the small-node fallback and the trailing
+    gate's participation test only."""
+    if isinstance(x, _Lazy):
+        return x.window(0, x.n)
+    return x
+
+
+def _lazy_mul(a, b):
+    """Product of None | int32 vector | _Lazy weights (same length);
+    stays lazy if either side is."""
     if a is None:
         return b
     if b is None:
         return a
+    if isinstance(a, _Lazy) or isinstance(b, _Lazy):
+        fa = a.factors if isinstance(a, _Lazy) else [("mat", a)]
+        fb = b.factors if isinstance(b, _Lazy) else [("mat", b)]
+        n = a.n if isinstance(a, _Lazy) else a.shape[0]
+        return _Lazy(n, fa + fb)
     return a * b
+
+
+def _lazy_any_positive(lz: _Lazy, mask) -> torch.Tensor:
+    """any(weight > 0 [& mask]) over a huge node, window by window, as a
+    0-d bool on the device."""
+    acc = torch.zeros((), dtype=torch.bool, device=lz.device)
+    for start, size in _windows(lz.n, _win_rows()):
+        p = lz.pos_window(start, size)
+        if mask is not None:
+            p = p & mask[start:start + size]
+        acc = acc | torch.any(p)
+    return acc
+
+
+def _scatter_add_big(width, key, off, weight, mask, sent, impl="auto"):
+    """zeros(width)[key + off (masked -> sent)] += weight for a HUGE key
+    vector, window by window into one running table (scatter_add_window),
+    so that the masked-key and weight temps stay window-sized. weight:
+    None | int32 vector | _Lazy."""
+    n = key.shape[0]
+    _win_guard(n)
+    acc = torch.zeros(width, dtype=torch.int32, device=key.device)
+    for start, size in _windows(n, _win_rows()):
+        k = key[start:start + size]
+        if off:
+            k = k + off
+        if isinstance(weight, _Lazy):
+            w = weight.window(start, size)
+        elif weight is None:
+            w = _ones(size, key.device)
+        else:
+            w = weight[start:start + size]
+        if mask is not None:
+            m = mask[start:start + size]
+            k = torch.where(m, k, sent)
+            w = torch.where(m, w, 0)
+        scatter_add_window(acc, k, w, impl)
+    return acc
+
+
+def _collect_pass_arrays(scatters, folds):
+    """Ordered {id: array} of every window-sliced operand of a fused
+    pass: scatter keys/weights/masks, fold planes, and the arrays inside
+    every lazy factor — exactly what a sorted window carries through its
+    permutation."""
+    arrs = {}
+
+    def add(a):
+        if a is not None and id(a) not in arrs:
+            arrs[id(a)] = a
+
+    def add_lazy(w):
+        if isinstance(w, _Lazy):
+            for f in w.factors:
+                add(f[2] if f[0] == "gather" else f[1])
+        elif w is not None:
+            add(w)
+
+    for (_w, key, _off, weight, mask, _sent) in scatters:
+        add(key)
+        add_lazy(weight)
+        add(mask)
+    for (plane, lz, _pb) in folds:
+        add(plane)
+        add_lazy(lz)
+    return arrs
+
+
+def _pick_primary(scatters, folds):
+    """id of the key column consumed by the most scatters + lazy gathers
+    of this pass: the column whose sort order pays the most."""
+    cnt: dict = {}
+    for (_w, key, _off, weight, _m, _s) in scatters:
+        cnt[id(key)] = cnt.get(id(key), 0) + 1
+        if isinstance(weight, _Lazy):
+            for f in weight.factors:
+                if f[0] == "gather":
+                    cnt[id(f[2])] = cnt.get(id(f[2]), 0) + 1
+    for (_plane, lz, _pb) in folds:
+        for f in lz.factors:
+            if f[0] == "gather":
+                cnt[id(f[2])] = cnt.get(id(f[2]), 0) + 1
+    if not cnt:
+        return None
+    return max(cnt.items(), key=lambda kv: kv[1])[0]
+
+
+def _pass_bits(scatters, folds, arrs):
+    """Static value-bit bounds per operand array of a fused pass: scatter
+    keys by their table widths, gather keys by their edge widths, planes
+    by the spec's load-time stats, masks by 1, uint16 arrays by 16.
+    31 = unknown (carried raw by the packer: negative or unbounded
+    values must never enter a packed word)."""
+    bits = {}
+
+    def note(a, b):
+        bits[id(a)] = min(bits.get(id(a), 31), b)
+
+    def note_lazy(w):
+        if isinstance(w, _Lazy):
+            for f in w.factors:
+                if f[0] == "gather":
+                    note(f[2], f[5])
+                elif f[0] == "mask":
+                    note(f[1], 1)
+    for (width, key, _off, weight, mask, _sent) in scatters:
+        note(key, (width - 1).bit_length())
+        note_lazy(weight)
+        if mask is not None:
+            note(mask, 1)
+    for (plane, lz, pb) in folds:
+        note(plane, pb)
+        note_lazy(lz)
+    for i, a in arrs.items():
+        if a.dtype == torch.bool:
+            bits[i] = min(bits.get(i, 31), 1)
+        elif a.dtype == torch.uint16:
+            bits[i] = min(bits.get(i, 31), 16)
+    return bits
+
+
+def _plan_packing(primary, arrs, bits, with_live):
+    """First-fit-decreasing layout of a sorted window's operands into
+    int32 words: word 0 carries the primary key in its HIGH bits (so
+    sorting by word 0 sorts by key; ties among the low-bit payloads break
+    anyhow, which multiset consumers allow), the other known-bit payloads
+    fill word 0's low bits and then further words; unknown-bit operands
+    ride the permutation raw. Returns (layout, raw_ids, n_ops), or None
+    when packing would not shrink the number of sort operands.
+    layout: list of words, each a list of (payload_id, shift, bits);
+    word 0 starts with ("_key", shift, kbits). with_live packs the
+    reference's ragged-tail mask as pseudo-id "_live" (1 bit): the port's
+    windows end in a short window instead, so the engine always passes
+    False (the layout stays the reference's, and tests hold both)."""
+    pb = bits.get(primary, 31)
+    if pb >= 31:
+        return None
+    payloads = [(i, bits.get(i, 31)) for i in arrs if i != primary]
+    if with_live:
+        payloads.append(("_live", 1))
+    known = sorted([p for p in payloads if p[1] < 31],
+                   key=lambda x: -x[1])
+    raw = [p[0] for p in payloads if p[1] >= 31]
+    # word 0 starts with the key at its top; payloads stack downward
+    words = [[("_key", 31 - pb, pb)]]
+    space = [31 - pb]
+    for (i, b) in known:
+        for w in range(len(words)):
+            if space[w] >= b:
+                words[w].append((i, space[w] - b, b))
+                space[w] -= b
+                break
+        else:
+            words.append([(i, 31 - b, b)])
+            space.append(31 - b)
+    n_ops = len(words) + len(raw)
+    plain_ops = 1 + len(payloads)
+    if n_ops >= plain_ops:
+        return None
+    return words, raw, n_ops
+
+
+def _int32_operand(a: torch.Tensor) -> torch.Tensor:
+    """A uint16 plane widened (zero-extended) for index_select, which has
+    no uint16 kernel; other operands as they are."""
+    return a.to(torch.int32) if a.dtype == torch.uint16 else a
+
+
+def _sort_window(primary, arrs, pk, start, size, cache):
+    """Sort rows [start, start + size) by the primary key column once,
+    and put every operand's permuted window into `cache`, where the
+    pass's consumers find it (_slice_cached). torch.sort orders the
+    packed word 0 (key in its high bits; pk, the pass's _plan_packing
+    layout) or, where packing declines (pk None), the key itself; the
+    other operands follow the permutation through index_select. Unpacked
+    payloads stay int32 (a bool mask goes back to bool): every consumer
+    widens what it reads."""
+    sl = {i: arrs[i][start:start + size] for i in arrs}
+    if pk is None:
+        skey, perm = torch.sort(sl[primary])
+        cache[("s", primary)] = skey
+        for i in arrs:
+            if i != primary:
+                cache[("s", i)] = _int32_operand(sl[i]).index_select(0, perm)
+        return
+    words, raw, _n = pk
+    packed = []
+    for wlist in words:
+        wv = None
+        for (i, sh, _b) in wlist:
+            v = sl[primary if i == "_key" else i].to(torch.int32) << sh
+            wv = v if wv is None else wv | v
+        packed.append(wv)
+    w0, perm = torch.sort(packed[0])
+    for wi, wlist in enumerate(words):
+        wv = w0 if wi == 0 else packed[wi].index_select(0, perm)
+        for (i, sh, b) in wlist:
+            v = (wv >> sh) & ((1 << b) - 1)
+            if i == "_key":
+                cache[("s", primary)] = v
+            elif arrs[i].dtype == torch.bool:
+                cache[("s", i)] = v != 0
+            else:
+                cache[("s", i)] = v
+    for i in raw:
+        cache[("s", i)] = _int32_operand(sl[i]).index_select(0, perm)
+
+
+def _fused_node_pass(n, scatters, folds, flag_idx, impl="auto",
+                     wsort="off"):
+    """ONE window loop over a huge node serving every consumer at once:
+    message-table builds (each into its own running table), exact
+    projection folds, and the root NULL flag. Each window evaluates
+    every shared lazy lookup once (`_Lazy.window(cache=...)`): on a star
+    fact node the A build of edge 1 looks up edge 2's message table and
+    vice versa, and the projection fold looks up both, so the fused pass
+    reads each key column once per window instead of once per consumer.
+
+    scatters: [(width, key, off, weight, mask, sent)], the semantics of
+        _scatter_add_big (weight: None | vector | _Lazy).
+    folds: [(plane, lazy_weight, plane_bits)]; the lazy weight already
+        carries its msg_mask factor.
+    flag_idx: the folds index whose any(weight > 0) is also wanted (the
+        root emptiness bit), or None.
+    wsort: "off"; "on" sorts every window once by the pass's
+        most-consumed key column and carries every other operand window
+        through the same permutation (builds, folds and flags are
+        multiset operations, so row order within a window is free);
+        "mono" does so only for passes of at most two operands (one key
+        and one plane, the Zipf shape). A sorted pass of three or more
+        operands runs quarter windows, as in the reference.
+    Returns ([A_i int32 tables], [fold_i 0-d int64 sums], anyp or None).
+    The windows are disjoint, the last one short."""
+    _win_guard(n)
+    primary = (_pick_primary(scatters, folds)
+               if wsort != "off" else None)
+    arrs = (_collect_pass_arrays(scatters, folds) if primary is not None
+            else None)
+    if primary is not None and wsort == "mono" and len(arrs) > 2:
+        primary = arrs = None
+    pk = (_plan_packing(primary, arrs, _pass_bits(scatters, folds, arrs),
+                        False) if primary is not None else None)
+    w_rows = _win_rows()
+    if primary is not None and len(arrs) > 2:
+        w_rows = max(w_rows // 4, 1)
+    device = (scatters[0][1] if scatters else folds[0][0]).device
+    acc_a = [torch.zeros(s[0], dtype=torch.int32, device=device)
+             for s in scatters]
+    sums = [torch.zeros((), dtype=torch.int64, device=device)
+            for _ in folds]
+    flag = (torch.zeros((), dtype=torch.bool, device=device)
+            if flag_idx is not None else None)
+    for start, size in _windows(n, w_rows):
+        cache = {}
+        if primary is not None:
+            _sort_window(primary, arrs, pk, start, size, cache)
+        for acc, (width, key, off, weight, mask, sent) in zip(acc_a,
+                                                             scatters):
+            k = _slice_cached(key, start, size, cache)
+            if off:
+                k = k + off
+            if isinstance(weight, _Lazy):
+                w = weight.window(start, size, cache)
+            elif weight is None:
+                w = _ones(size, device)
+            else:
+                w = _slice_cached(weight, start, size, cache)
+            if mask is not None:
+                mk = _slice_cached(mask, start, size, cache)
+                if primary is not None and id(key) == primary:
+                    # the window is sorted by this key: zeroing the
+                    # WEIGHT keeps the build's result (adding 0) and the
+                    # key order; key codes are always < width by the
+                    # planner's construction
+                    w = torch.where(mk, w, 0)
+                else:
+                    k = torch.where(mk, k, sent)
+                    w = torch.where(mk, w, 0)
+            scatter_add_window(acc, k, w, impl)
+        for fi, (plane, lz, _pb) in enumerate(folds):
+            c = lz.window(start, size, cache)
+            if fi == flag_idx:
+                flag = flag | torch.any(c > 0)
+            sums[fi] = sums[fi] + fold_window(
+                _slice_cached(plane, start, size, cache), c)
+    return acc_a, sums, flag
 
 
 def _masked_scatter_operands(key, off, w, mm, sent):
@@ -211,18 +640,20 @@ def _masked_scatter_operands(key, off, w, mm, sent):
         return (torch.where(mm, key + off, sent),
                 mm.to(torch.int32) if w is None else torch.where(mm, w, 0))
     return (key + off,
-            torch.ones(key.shape[0], dtype=torch.int32, device=key.device)
-            if w is None else w)
+            _ones(key.shape[0], key.device) if w is None else w)
 
 
-def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto"):
+def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto",
+                   wsort="off"):
     """Execute MANY factorized trees in one level-batched wave.
 
     wspecs: tuple of (spec, n_cols, n_vals); cols/vals hold every spec's
     operands back to back. Returns (flags, sums): flags is a list of 0-d
     bool tensors in spec order (within a spec: the flag_nodes flags, then
     the M/trailing flag); sums is an int64 vector with one wrapped u64
-    SUM per projection plane, in spec order."""
+    SUM per projection plane, in spec order. wsort: the sorted-window
+    policy of the huge-node passes ("off", "on", "mono";
+    _fused_node_pass)."""
     trees = []
     ci = vi = 0
     for (spec, nc, nv) in wspecs:
@@ -241,11 +672,17 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto"):
         ups = [(t, ei) for t in trees for ei in t.by_height.get(h, ())]
         if not ups:
             continue
-        sc = [(t, ei) for (t, ei) in ups if t.pre[ei] is None]
+        # edges whose CHILD node is huge build window by window, each
+        # into its own slice of the level table; the rest batch into one
+        # build as usual
+        sc = [(t, ei) for (t, ei) in ups if t.pre[ei] is None
+              and t.ckey[ei].shape[0] <= _BIG_WAVE_ROWS]
+        bg = [(t, ei) for (t, ei) in ups if t.pre[ei] is None
+              and t.ckey[ei].shape[0] > _BIG_WAVE_ROWS]
         pr = [(t, ei) for (t, ei) in ups if t.pre[ei] is not None]
         offs = {}
         total = 0
-        for (t, ei) in sc + pr:
+        for (t, ei) in sc + bg + pr:
             offs[(id(t), ei)] = total
             total += t.edges[ei][4]
         parts = []
@@ -255,28 +692,57 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto"):
             for (t, ei) in sc:
                 c = t.edges[ei][1]
                 i_, w_ = _masked_scatter_operands(
-                    t.ckey[ei], offs[(id(t), ei)], t.beta[c],
+                    t.ckey[ei], offs[(id(t), ei)], _mat(t.beta[c]),
                     t.msg_mask[c], t_sc)
                 idxs.append(i_)
                 ws.append(w_)
             parts.append(scatter_table(_concat(idxs), _concat(ws), t_sc,
                                        scatter))
+        # huge-CHILD edges group by (tree, child): one fused window pass
+        # per node serves every edge's build
+        up_groups: dict = {}
+        for (t, ei) in bg:
+            up_groups.setdefault((id(t), t.edges[ei][1]), (t, []))[1]\
+                .append(ei)
+        up_part = {}
+        for (_tid, c), (t, eis) in up_groups.items():
+            scats = []
+            for ei in eis:
+                w = t.edges[ei][4]
+                scats.append((w, t.ckey[ei], 0, t.beta[c], t.msg_mask[c], w))
+            b_list, _f, _a = _fused_node_pass(
+                t.ckey[eis[0]].shape[0], scats, [], None, impl=scatter,
+                wsort=wsort)
+            for ei, bb in zip(eis, b_list):
+                up_part[(id(t), ei)] = bb
+        parts.extend(up_part[(id(t), ei)] for (t, ei) in bg)
         for (t, ei) in pr:
             parts.append(t.pre[ei])
         mega = _concat(parts)
-        keys = _concat([t.pkey[ei] + offs[(id(t), ei)]
-                        for (t, ei) in sc + pr])
-        g = table_gather(mega, keys, gather)
+        gks, meta, resolved = [], [], []
+        for (t, ei) in sc + bg + pr:
+            off = offs[(id(t), ei)]
+            if t.pkey[ei].shape[0] > _BIG_WAVE_ROWS:
+                # huge PARENT: the lookup stays lazy; boolean trees clamp
+                # per window inside the factor
+                kb = (t.edges[ei][4] - 1).bit_length()
+                resolved.append((t, ei, _Lazy.gather(mega, t.pkey[ei], off,
+                                                     t.boolean, kbits=kb)))
+                continue
+            gks.append(t.pkey[ei] + off)
+            meta.append((t, ei, t.pkey[ei].shape[0]))
+        g = table_gather(mega, _concat(gks), gather) if gks else None
         o = 0
-        for (t, ei) in sc + pr:
-            n = t.pkey[ei].shape[0]
+        for (t, ei, n) in meta:
             cv = g[o:o + n]
             o += n
             if t.boolean:
                 cv = (cv > 0).to(torch.int32)
+            resolved.append((t, ei, cv))
+        for (t, ei, cv) in resolved:
             t.contrib[ei] = cv
             p = t.edges[ei][0]
-            t.beta[p] = _mul(t.beta[p], cv)
+            t.beta[p] = _lazy_mul(t.beta[p], cv)
 
     # ---- down pass, level-batched (top-down depths) ----
     maxd = max((d for t in trees for d in t.by_depth), default=-1)
@@ -284,29 +750,91 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto"):
         downs = [(t, ei) for t in trees for ei in t.by_depth.get(d, ())]
         if not downs:
             continue
+        # edges whose PARENT node is huge build their A slice window by
+        # window (the weight, alpha[p] times the sibling contribs, is
+        # evaluated per window, never materialized)
+        sm = [(t, ei) for (t, ei) in downs
+              if t.pkey[ei].shape[0] <= _BIG_WAVE_ROWS]
+        bg = [(t, ei) for (t, ei) in downs
+              if t.pkey[ei].shape[0] > _BIG_WAVE_ROWS]
         offs = {}
         total = 0
-        for (t, ei) in downs:
+        for (t, ei) in sm + bg:
             offs[(id(t), ei)] = total
             total += t.edges[ei][4]
-        idxs, ws = [], []
-        for (t, ei) in downs:
+
+        def down_weight(t, ei):
             p = t.edges[ei][0]
             w = t.alpha[p]
             for ej in t.children[p]:
                 if ej != ei:
-                    w = _mul(w, t.contrib[ej])
-            i_, w_ = _masked_scatter_operands(
-                t.pkey[ei], offs[(id(t), ei)], w, t.msg_mask[p], total)
-            idxs.append(i_)
-            ws.append(w_)
-        A = scatter_table(_concat(idxs), _concat(ws), total, scatter)
-        keys = _concat([t.ckey[ei] + offs[(id(t), ei)]
-                        for (t, ei) in downs])
-        g = table_gather(A, keys, gather)
+                    w = _lazy_mul(w, t.contrib[ej])
+            return w
+
+        parts = []
+        if sm:
+            t_sm = sum(t.edges[ei][4] for (t, ei) in sm)
+            idxs, ws = [], []
+            for (t, ei) in sm:
+                p = t.edges[ei][0]
+                i_, w_ = _masked_scatter_operands(
+                    t.pkey[ei], offs[(id(t), ei)], _mat(down_weight(t, ei)),
+                    t.msg_mask[p], t_sm)
+                idxs.append(i_)
+                ws.append(w_)
+            parts.append(scatter_table(_concat(idxs), _concat(ws), t_sm,
+                                       scatter))
+        # huge-parent edges: ONE fused window pass per (tree, parent)
+        # builds all of the node's A slices, folds its projections and
+        # emits its NULL flag, sharing every per-window lookup
+        groups: dict = {}
+        for (t, ei) in bg:
+            groups.setdefault((id(t), t.edges[ei][0]), (t, []))[1]\
+                .append(ei)
+        part_of = {}
+        for (_tid, p), (t, eis) in groups.items():
+            n_node = t.pkey[eis[0]].shape[0]
+            scats = []
+            for ei in eis:
+                w_edge = t.edges[ei][4]
+                scats.append((w_edge, t.pkey[ei], 0, down_weight(t, ei),
+                              t.msg_mask[p], w_edge))
+            folds, fold_pi, flag_idx = [], [], None
+            for pi, ((i, *_b), plane) in enumerate(zip(t.projs, t.planes)):
+                if i != p or pi in t.done_folds:
+                    continue
+                m_ = _lazy_mul(t.beta[i], t.alpha[i])
+                if not isinstance(m_, _Lazy):
+                    continue
+                if (i == t.root and t.tnode is None and flag_idx is None
+                        and t.msg_mask[i] is t.mask[i]):
+                    flag_idx = len(folds)
+                folds.append((plane, m_.with_mask(t.msg_mask[i]),
+                              t.plane_bits[pi]))
+                fold_pi.append(pi)
+            a_list, fold_list, anyp = _fused_node_pass(
+                n_node, scats, folds, flag_idx, impl=scatter, wsort=wsort)
+            for ei, ah in zip(eis, a_list):
+                part_of[(id(t), ei)] = ah
+            for pi, f in zip(fold_pi, fold_list):
+                t.done_folds[pi] = f
+            if anyp is not None:
+                t.done_flag = anyp
+        parts.extend(part_of[(id(t), ei)] for (t, ei) in bg)
+        A = _concat(parts)
+        gks, meta = [], []
+        for (t, ei) in sm + bg:
+            off = offs[(id(t), ei)]
+            if t.ckey[ei].shape[0] > _BIG_WAVE_ROWS:
+                t.alpha[t.edges[ei][1]] = _Lazy.gather(
+                    A, t.ckey[ei], off, t.boolean,
+                    kbits=(t.edges[ei][4] - 1).bit_length())
+                continue
+            gks.append(t.ckey[ei] + off)
+            meta.append((t, ei, t.ckey[ei].shape[0]))
+        g = table_gather(A, _concat(gks), gather) if gks else None
         o = 0
-        for (t, ei) in downs:
-            n = t.ckey[ei].shape[0]
+        for (t, ei, n) in meta:
             t.alpha[t.edges[ei][1]] = g[o:o + n]
             o += n
 
@@ -314,21 +842,68 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto"):
     flags, outs = [], []
     for t in trees:
         mask, msg_mask = t.mask, t.msg_mask
-        for (i, *_b), plane in zip(t.projs, t.planes):
-            m = _mul(t.beta[i], t.alpha[i])
+        # nodes with SEVERAL pending lazy folds (a u64 column's 16-bit
+        # planes, or several projected columns of one huge node) fold in
+        # one fused window pass sharing the weight lookups; under sorted
+        # windows a single fold takes the fused pass too
+        by_node: dict = {}
+        for pi, ((i, *_b), plane) in enumerate(zip(t.projs, t.planes)):
+            if pi in t.done_folds:
+                continue
+            m = _lazy_mul(t.beta[i], t.alpha[i])
+            if isinstance(m, _Lazy):
+                by_node.setdefault(i, []).append((pi, plane, m))
+        for i, lst in by_node.items():
+            if len(lst) < 2 and wsort == "off":
+                continue
+            flag_idx = (0 if (i == t.root and t.tnode is None
+                              and t.done_flag is None
+                              and msg_mask[i] is mask[i]) else None)
+            _al, fold_list, anyp = _fused_node_pass(
+                lst[0][1].shape[0], [],
+                [(plane, m.with_mask(msg_mask[i]), t.plane_bits[pi])
+                 for (pi, plane, m) in lst], flag_idx, wsort=wsort)
+            for (pi, _plane, _m), f in zip(lst, fold_list):
+                t.done_folds[pi] = f
+            if anyp is not None:
+                t.done_flag = anyp
+
+        tree_outs, root_fold = [], None
+        for pi, ((i, *_b), plane) in enumerate(zip(t.projs, t.planes)):
+            if pi in t.done_folds:
+                # already folded inside a fused window loop
+                tree_outs.append(("done", t.done_folds[pi]))
+                continue
+            m = _lazy_mul(t.beta[i], t.alpha[i])
+            if isinstance(m, _Lazy):
+                # folds window by window, its mask a lazy factor
+                if (i == t.root and t.tnode is None and root_fold is None
+                        and msg_mask[i] is mask[i]):
+                    root_fold = len(outs) + len(tree_outs)
+                tree_outs.append((plane, m.with_mask(msg_mask[i])))
+                continue
             if m is None:
-                w = (torch.ones(plane.shape[0], dtype=torch.int32,
-                                device=plane.device)
+                w = (_ones(plane.shape[0], plane.device)
                      if msg_mask[i] is None
                      else msg_mask[i].to(torch.int32))
             else:
                 w = (m if msg_mask[i] is None
                      else torch.where(msg_mask[i], m, 0))
-            outs.append((plane, w))
+            tree_outs.append((plane, w))
         flags.extend(_none_anywhere(mask[i]) for i in t.flag_nodes)
         if t.root >= 0 and t.tnode is None:
             br, mr = t.beta[t.root], mask[t.root]
-            if br is None:
+            if t.done_flag is not None:
+                # emitted by a fused window loop
+                flags.append(~t.done_flag)
+            elif isinstance(br, _Lazy):
+                if root_fold is not None:
+                    # the root projection's fold loop emits
+                    # any(weight > 0) for free
+                    flags.append(("from_fold", root_fold))
+                else:
+                    flags.append(~_lazy_any_positive(br, mr))
+            elif br is None:
                 flags.append(torch.zeros((), dtype=torch.bool, device=device)
                              if mr is None else _none_anywhere(mr))
             elif mr is None:
@@ -344,9 +919,9 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto"):
                 if mask[node] is not None:
                     p &= mask[node]
                 if t.beta[node] is not None:
-                    p &= t.beta[node] > 0
+                    p &= _mat(t.beta[node]) > 0
                 if t.alpha[node] is not None:
-                    p &= t.alpha[node] > 0
+                    p &= _mat(t.alpha[node]) > 0
                 return p
             part = _participates(t.tnode, t.tsel_a.shape[0])
             part_b = (part if t.tnode_b is None
@@ -368,6 +943,33 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto"):
                 # (Query.cpp:168-170) — NULL iff the pre-selection
                 # multiset is empty
                 flags.append(_none_anywhere(part))
+        outs.extend(tree_outs)
 
-    # every projection folds in ONE segmented int64 pass
+    # every projection folds in ONE segmented int64 pass, except in a
+    # HUGE wave (> _BIG_WAVE_ROWS rows, or any lazy or fused fold): there
+    # each projection folds in place, window by window
+    # (weighted_partials_big), and the concatenation never exists
+    if outs:
+        total = sum(plane.shape[0] for plane, _w in outs
+                    if not isinstance(plane, str))
+        if (total > _BIG_WAVE_ROWS
+                or any(isinstance(w, _Lazy) for _, w in outs)
+                or any(isinstance(p, str) for p, _w in outs)):
+            want_any = {f[1] for f in flags if isinstance(f, tuple)}
+            sums, anyp = [], {}
+            for oi, (plane, w) in enumerate(outs):
+                if isinstance(plane, str):       # ("done", fused fold)
+                    sums.append(w)
+                elif not isinstance(w, _Lazy):
+                    sums.append(weighted_partials_big(plane, w))
+                elif oi in want_any:
+                    s, anyp[oi] = weighted_partials_big(
+                        plane, weight_fn=w.window, also_any_positive=True)
+                    sums.append(s)
+                else:
+                    sums.append(weighted_partials_big(plane,
+                                                      weight_fn=w.window))
+            flags = [(~anyp[f[1]] if isinstance(f, tuple) else f)
+                     for f in flags]
+            return flags, torch.stack(sums)
     return flags, fold_segments(outs, device)

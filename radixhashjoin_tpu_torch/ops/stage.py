@@ -100,7 +100,8 @@ def part_shape(kind) -> int:
 
 def run_stage(live_rows, live_cnt, mats, icounts, probes, cols, vals, plan,
               domain: int, keep_slots=(), keep_mats=(), keep_probes=(),
-              ftree_scatter="auto", ftree_gather="auto"):
+              ftree_scatter="auto", ftree_gather="auto",
+              ftree_wsort="off"):
     """Execute one fused stage for a round of queries.
 
     Returns (packed, kept live_rows, kept live_cnt, kept mats, kept
@@ -108,7 +109,8 @@ def run_stage(live_rows, live_cnt, mats, icounts, probes, cols, vals, plan,
     [flags | spec ok-flags | probe totals | partials]; keep_* are the
     planner's keep sets (only a query that emitted a probe continues
     next round). Nothing here reads the device: counts stay 0-d device
-    tensors, sizes are static."""
+    tensors, sizes are static. ftree_wsort: the factorized wave's
+    sorted-window policy ("off", "on", "mono")."""
     lr = list(live_rows)
     lc = list(live_cnt)
     mats = list(mats)
@@ -284,7 +286,8 @@ def run_stage(live_rows, live_cnt, mats, icounts, probes, cols, vals, plan,
             fflags, sums = run_ftree_wave(wspecs, cols[ci:ci + n_cols],
                                           vals[vi:vi + n_vals],
                                           scatter=ftree_scatter,
-                                          gather=ftree_gather)
+                                          gather=ftree_gather,
+                                          wsort=ftree_wsort)
             ci += n_cols
             vi += n_vals
             flags.extend(fflags)

@@ -1,10 +1,13 @@
 """Message-table build (weighted bincount) and lookup (counterpart:
-radixhashjoin_tpu/ops/tables.py:119,283,314,564,616).
+radixhashjoin_tpu/ops/tables.py:119,283,314,339,564,616).
 
 The factorized wave's two data-sized primitives:
 
     build:  B = zeros(n_bins); B[idxs] += weights   (out-of-range dropped)
     lookup: g = B[keys]                             (out-of-range -> 0)
+
+The huge-node window loops build window by window into one running table
+(`scatter_add_window`: the same build, adding into an accumulator).
 
 Each has a plain PyTorch version here and a hand-written Hopper kernel
 (csrc/tables.cu, bound by kernels.py). Dispatch follows the tensor's
@@ -14,16 +17,21 @@ tensor launches the kernel or raises.
 `impl` keeps the reference's dispatch argument. "auto" and "onehot" both
 mean the dispatch above ("onehot" names the Pallas build kernel the CUDA
 build replaces). The reference's TPU-shaped variants ("mxu", "hier",
-"sorted", "xla") are not ported and raise NotImplementedError.
+"sorted", "xla") are not ported and raise NotImplementedError, except
+that scatter_add_window takes "hier" and "hier_presorted" as the build.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from .. import kernels
 
 PORTED_IMPLS = ("auto", "onehot")
+# scatter_add_window also takes the reference's sorted-window build names
+WINDOW_IMPLS = PORTED_IMPLS + ("hier", "hier_presorted")
 
 
 def check_impl(impl: str) -> None:
@@ -35,17 +43,21 @@ def check_impl(impl: str) -> None:
 
 
 def weighted_bincount_torch(idxs: torch.Tensor, weights: torch.Tensor,
-                            n_bins: int) -> torch.Tensor:
+                            n_bins: int, out: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """Plain version of the build: int32[n_bins] weighted bincount with
     indices outside [0, n_bins) dropped, like the reference's
-    `.at[idxs].add(weights, mode="drop")`. index_add_ has no drop mode
-    (on CUDA an out-of-range index device-asserts), so dropped rows land
-    in a spare slot past the end."""
+    `.at[idxs].add(weights, mode="drop")`, added into `out` when the
+    caller passes an accumulator. index_add_ has no drop mode (on CUDA an
+    out-of-range index device-asserts), so dropped rows land in a spare
+    slot past the end."""
     ok = (idxs >= 0) & (idxs < n_bins)
     safe = torch.where(ok, idxs, n_bins)
-    out = torch.zeros(n_bins + 1, dtype=torch.int32, device=idxs.device)
-    out.index_add_(0, safe, weights.to(torch.int32))
-    return out[:n_bins]
+    table = torch.zeros(n_bins + 1, dtype=torch.int32, device=idxs.device)
+    table.index_add_(0, safe, weights.to(torch.int32))
+    if out is None:
+        return table[:n_bins]
+    return out.add_(table[:n_bins])
 
 
 def table_gather_torch(table: torch.Tensor, keys: torch.Tensor
@@ -68,6 +80,24 @@ def scatter_table(idxs: torch.Tensor, weights: torch.Tensor, n_bins: int,
     if idxs.device.type == "cpu":
         return weighted_bincount_torch(idxs, weights, n_bins)
     return kernels.weighted_bincount_cuda(idxs, weights, n_bins)
+
+
+def scatter_add_window(acc: torch.Tensor, idxs: torch.Tensor,
+                       weights: torch.Tensor, impl: str = "auto"
+                       ) -> torch.Tensor:
+    """acc[idxs] += weights, out-of-range dropped, in place: one window of
+    a huge-node build (ops/factorized.py's window loops) added into the
+    running table. Returns acc. The reference dispatches among TPU builds
+    here; the port's one build adds into its output on either device, and
+    it takes sorted windows well (its hot-bin cache), so the reference's
+    sorted-window names "hier" and "hier_presorted" run it too. "mxu"
+    and "xla" raise, as in scatter_table."""
+    if impl not in WINDOW_IMPLS:
+        check_impl(impl)
+    if idxs.device.type == "cpu":
+        return weighted_bincount_torch(idxs, weights, acc.shape[0], out=acc)
+    return kernels.weighted_bincount_cuda(idxs, weights, acc.shape[0],
+                                          out=acc)
 
 
 def table_gather(table: torch.Tensor, keys: torch.Tensor,

@@ -1,5 +1,6 @@
 """Exact u64 SUMs in int64 (counterpart: radixhashjoin_tpu/utils/limbs.py:
-147-244 weighted_partials_segments, 381-402 combine_weighted_segments).
+147-244 weighted_partials_segments, 250 weighted_partials_big, 381-402
+combine_weighted_segments).
 
 The reference splits every product into 16-bit limbs and 11-bit pieces
 because TPU vector lanes are 32-bit (limbs.py:1-10). Hopper has native
@@ -15,7 +16,11 @@ each sum back as `int(x) & (2**64 - 1)`.
 
 One wave folds all of its projections in one segmented pass (one
 multiply, one prefix sum, one boundary gather), not one reduction per
-projection.
+projection. A wave past _BIG_WAVE_ROWS rows (ops/factorized.py) folds
+each projection in place instead, window by window
+(weighted_partials_big): the concatenation would copy every plane.
+Planes of huge nodes may be uint16 (models/device_catalog.py); every
+fold widens them to int64, which zero-extends.
 
 The materialized fallback's weights (a match count times the deferred
 multiplicities, models/batch.py) are int64 products: where the
@@ -26,7 +31,7 @@ complement), so the folded sum is the exact u64 SUM for any weights.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -61,6 +66,57 @@ def weighted_partials(vals: torch.Tensor, weights: torch.Tensor, count
     idx = torch.arange(vals.shape[0], dtype=torch.int32, device=vals.device)
     return fold_segments([(torch.where(idx < count, vals, 0), weights)],
                          vals.device)
+
+
+def fold_window(vals: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """0-d int64: sum(vals * weights) mod 2**64 over one window. A uint16
+    plane zero-extends in the widening to int64."""
+    return torch.sum(vals.to(torch.int64) * weights.to(torch.int64))
+
+
+# rows per window of weighted_partials_big; read at call time so that
+# tests can shrink it
+_BIG_WINDOW_ROWS = 1 << 26
+
+
+def weighted_partials_big(vals: torch.Tensor, counts=None, *,
+                          weight_mask: Optional[torch.Tensor] = None,
+                          weight_fn: Optional[Callable] = None,
+                          also_any_positive: bool = False):
+    """0-d int64: the exact u64 sum(vals * weight) mod 2**64 over a HUGE
+    vector, window by window (counterpart: radixhashjoin_tpu/utils/
+    limbs.py:250, whose (5, 3) limb fold this one int64 replaces), so that
+    no full-length weight or product exists. Weight sources, one of:
+      * counts — materialized int32 weights, sliced per window;
+      * weight_fn(start, size) -> int32 weights of rows [start,
+        start + size) (ops/factorized.py passes a lazy product of table
+        lookups here).
+    weight_mask (optional bool, same length): rows where it is False
+    weigh 0, also per window. also_any_positive: also return
+    any(weight > 0), a 0-d bool taken in the same loop (the root NULL
+    flag), as (sum, anyp). The last window is a short one: an int64 sum
+    needs no chunk alignment, so no row is folded twice. Lengths cap
+    below 2**31 - _BIG_WINDOW_ROWS rows, as in the reference (its int32
+    window addressing)."""
+    if (counts is None) == (weight_fn is None):
+        raise ValueError("give exactly one of counts and weight_fn")
+    n = vals.shape[0]
+    if n >= (1 << 31) - _BIG_WINDOW_ROWS:
+        raise ValueError(
+            f"weighted_partials_big caps at 2**31 - {_BIG_WINDOW_ROWS} "
+            f"rows (int32 window addressing); got {n}")
+    total = torch.zeros((), dtype=torch.int64, device=vals.device)
+    anyp = torch.zeros((), dtype=torch.bool, device=vals.device)
+    for start in range(0, n, _BIG_WINDOW_ROWS):
+        size = min(_BIG_WINDOW_ROWS, n - start)
+        c = (weight_fn(start, size) if weight_fn is not None
+             else counts[start:start + size])
+        if weight_mask is not None:
+            c = torch.where(weight_mask[start:start + size], c, 0)
+        if also_any_positive:
+            anyp = anyp | torch.any(c > 0)
+        total = total + fold_window(vals[start:start + size], c)
+    return (total, anyp) if also_any_positive else total
 
 
 def combine_planes(parts: Sequence[Tuple[int, int]]) -> int:

@@ -548,3 +548,136 @@ def test_batch_fallback_cuda_matches_cpu(dev, cfg):
     assert got == [format_result(oracle.execute(q), len(q.projections))
                    for q in queries]
     assert eng.executor.counters["queries"] == 0
+
+
+# ---- the huge-node windowed pass: builds into an accumulator, uint16
+# planes, the pass itself at shrunken thresholds ----
+
+def _acc_exact(idx, w, n_bins, g):
+    """The build into a nonzero accumulator equals acc + the plain
+    build, returns that same accumulator, and launches once."""
+    acc = torch.randint(0, 1 << 20, (n_bins,), generator=g,
+                        device=idx.device, dtype=torch.int32)
+    want = acc + weighted_bincount_torch(idx, w, n_bins)
+    before = kernels.LAUNCHES["bincount"]
+    got = kernels.weighted_bincount_cuda(idx, w, n_bins, out=acc)
+    torch.cuda.synchronize()
+    assert got is acc
+    assert kernels.LAUNCHES["bincount"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n_bins", [700, SMEM_BINS, SMEM_BINS + 1, 1 << 20])
+@pytest.mark.parametrize("dist", ["uniform", "zipf"])
+def test_bincount_adds_into_accumulator(dev, n_bins, dist):
+    """Both kernels (the shared-memory histogram up to SMEM_BINS, the
+    hot-bin cache above) and the cache's direct adds (2^20 mostly
+    distinct bins) add into what `out` holds, also on Zipf-hot bins."""
+    g = torch.Generator(device=dev).manual_seed(n_bins)
+    n = 1 << 22
+    idx = (zipf_keys(g, n, n_bins, dev) if dist == "zipf"
+           else torch.randint(-2, n_bins + 2, (n,), generator=g, device=dev,
+                              dtype=torch.int32))
+    w = torch.randint(0, 100, (n,), generator=g, device=dev,
+                      dtype=torch.int32)
+    _acc_exact(idx, w, n_bins, g)
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("n_bins", [1024, 1 << 20])
+def test_bincount_accumulator_on_unaligned_views(dev, offset, n_bins):
+    """Windows are views at any element offset: keys, weights and the
+    accumulator each at offsets 1-3 of larger tensors."""
+    g = torch.Generator(device=dev).manual_seed(offset)
+    for n in (3, 4001, (1 << 20) + 1):
+        base = torch.randint(-3, n_bins + 3, (n + 8,), generator=g,
+                             device=dev, dtype=torch.int32)
+        w = torch.randint(0, 100, (n + 8,), generator=g, device=dev,
+                          dtype=torch.int32)
+        acc = torch.randint(0, 1 << 20, (n_bins + 8,), generator=g,
+                            device=dev, dtype=torch.int32)
+        outside = acc.clone()
+        view = acc[offset:offset + n_bins]
+        want = view + weighted_bincount_torch(
+            base[offset:offset + n], w[8 - offset:8 - offset + n], n_bins)
+        got = kernels.weighted_bincount_cuda(
+            base[offset:offset + n], w[8 - offset:8 - offset + n], n_bins,
+            out=view)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        # nothing outside the view moved
+        outside[offset:offset + n_bins] = want
+        assert torch.equal(acc, outside)
+
+
+def test_uint16_planes_widen_on_cuda(dev):
+    """A uint16 plane uploads from numpy and widens by zero extension to
+    int32 and int64 on the card (values with the top bit set included),
+    and the window fold reads it exactly."""
+    from radixhashjoin_tpu_torch.utils.limbs import fold_window
+    host = np.arange(0, 1 << 16, 7, dtype=np.uint16)
+    host[-1] = 0xFFFF
+    plane = torch.from_numpy(host).to(dev)
+    assert plane.dtype == torch.uint16
+    want = torch.from_numpy(host.astype(np.int64))
+    assert torch.equal(plane.to(torch.int64).cpu(), want)
+    assert torch.equal(plane.to(torch.int32).cpu(), want.int())
+    assert torch.equal(plane[5:77].to(torch.int64).cpu(), want[5:77])
+    w = torch.full((len(host),), 3, dtype=torch.int32, device=dev)
+    assert int(fold_window(plane, w)) == 3 * int(host.astype(np.int64).sum())
+
+
+def _huge_shrunk(monkeypatch):
+    from radixhashjoin_tpu_torch.models import device_catalog
+    from radixhashjoin_tpu_torch.ops import factorized
+    from radixhashjoin_tpu_torch.utils import limbs
+    monkeypatch.setattr(factorized, "_BIG_WAVE_ROWS", 2048)
+    monkeypatch.setattr(limbs, "_BIG_WINDOW_ROWS", 4096)
+    monkeypatch.setattr(device_catalog, "_NARROW_PLANE_MIN_ROWS", 1024)
+
+
+@pytest.mark.parametrize("wsort", ["off", "on", "mono"])
+def test_huge_pass_cuda_matches_cpu(dev, monkeypatch, wsort):
+    """The windowed huge-node pass at shrunken thresholds on the card: a
+    single join, a star with dimension projections, a fact filter, a
+    NULL, a wiped boolean component and a chain of two huge nodes, equal
+    to the CPU run and the oracle, with the build and lookup kernels
+    launched at least once per window of the huge nodes."""
+    _huge_shrunk(monkeypatch)
+    rng = np.random.default_rng(97)
+    n, n2 = 5 * 4096 + 77, 3 * 4096 + 11
+
+    def col(hi, m):
+        return rng.integers(0, hi, m).astype(np.uint64)
+
+    fact = Relation([col(300, n), col(200, n), col(1000, n)])
+    d1 = Relation([np.arange(300, dtype=np.uint64), col(1000, 300)])
+    d2 = Relation([np.arange(200, dtype=np.uint64), col(1000, 200)])
+    f2 = Relation([col(300, n2), col(1000, n2)])
+    rels = [fact, d1, d2, f2]
+    star = [JoinPred(0, 0, 1, 0), JoinPred(0, 1, 2, 0)]
+    queries = [
+        Query([0, 1], [JoinPred(0, 0, 1, 0)], [],
+              [Projection(0, 2), Projection(1, 1)]),
+        Query([0, 1, 2], star, [FilterPred(1, 1, "<", 900)],
+              [Projection(0, 2), Projection(1, 1), Projection(2, 1)]),
+        Query([0, 1, 2], star, [FilterPred(0, 2, "<", 700)],
+              [Projection(0, 2), Projection(2, 1)]),
+        Query([0, 1, 2], star, [FilterPred(1, 1, "=", 55555)],
+              [Projection(0, 2)]),
+        Query([0, 1, 2, 2], [JoinPred(0, 0, 1, 0), JoinPred(2, 0, 3, 0)],
+              [], [Projection(2, 1)]),
+        Query([3, 1, 0], [JoinPred(0, 0, 1, 0), JoinPred(1, 0, 2, 0)],
+              [FilterPred(0, 1, "<", 800)],
+              [Projection(0, 1), Projection(2, 2)]),
+    ]
+    cfg = EngineConfig(ftree_window_sort=wsort)
+    before = dict(kernels.LAUNCHES)
+    got = Engine(rels, cfg, device=dev).run_batch(queries)
+    grew = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    assert got == Engine(rels, cfg, device="cpu").run_batch(queries)
+    oracle = OracleExecutor(rels)
+    assert got == [format_result(oracle.execute(q), len(q.projections))
+                   for q in queries]
+    windows = -(-n // 2048)
+    assert grew["bincount"] >= windows and grew["gather"] >= windows

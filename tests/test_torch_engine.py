@@ -256,13 +256,40 @@ def test_no_join_query_raises():
     assert eng.executor.counters["queries"] == 0
 
 
-def test_huge_node_raises(monkeypatch):
+def _huge_agree(monkeypatch, config):
+    """A 1500-row relation past a shrunken _BIG_WAVE_ROWS (1024, both
+    packages: the reference's window folds need 1024 rows) through the
+    windowed huge-node pass: the port's Engine under `config` equals the
+    JAX engine and the oracle."""
+    from radixhashjoin_tpu.ops import factorized as jax_factorized
     from radixhashjoin_tpu_torch.ops import factorized
-    monkeypatch.setattr(factorized, "_BIG_WAVE_ROWS", 3)
-    eng = _port_engine([_u64([1, 2, 3, 4]), _u64([1, 2])])
-    q = tworkload.parse_query("0 1|0.0=1.0|0.0")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.run_batch([q])
+    for mod in (factorized, jax_factorized):
+        monkeypatch.setattr(mod, "_BIG_WAVE_ROWS", 1024)
+    rng = np.random.default_rng(5)
+    rels = [Relation([rng.integers(0, 40, 1500).astype(U64),
+                      rng.integers(0, 1000, 1500).astype(U64)]),
+            Relation([rng.integers(0, 40, 30).astype(U64)])]
+    queries = [Query([0, 1], [JoinPred(0, 0, 1, 0)], [],
+                     [Projection(0, 1), Projection(1, 0)]),
+               Query([0, 1], [JoinPred(0, 0, 1, 0)],
+                     [FilterPred(0, 1, ">", 5000)], [Projection(0, 0)])]
+    prels, pqueries = _to_port(rels, queries)
+    eng = Engine(prels, config, device="cpu")
+    oracle = OracleExecutor(rels)
+    want = [format_result(oracle.execute(q), len(q.projections))
+            for q in queries]
+    assert want[1] == "NULL"
+    assert eng.run_batch(pqueries) == want
+    ref = JaxBatch(rels, JaxConfig(ftree_window_sort=config.ftree_window_sort))
+    assert [format_result(r, len(q.projections))
+            for r, q in zip(ref.run_batch(queries), queries)] == want
+    assert eng.batch_executor.counters["ftree_queries"] == 2
+
+
+def test_huge_node_raises(monkeypatch):
+    """Nodes past _BIG_WAVE_ROWS run the windowed huge-node pass (the
+    name is from when they raised)."""
+    _huge_agree(monkeypatch, EngineConfig())
 
 
 @pytest.mark.parametrize("field,value", [
@@ -270,7 +297,11 @@ def test_huge_node_raises(monkeypatch):
     ("ftree_window_sort", "on"), ("ftree_scatter", "mxu"),
     ("ftree_gather", "xla"), ("ftree_wave", False), ("stage_group", 3),
 ])
-def test_unported_config_raises(field, value):
+def test_unported_config_raises(field, value, monkeypatch):
+    if field == "ftree_window_sort":
+        # ported: sorted windows run (and match JAX) on a huge node
+        _huge_agree(monkeypatch, EngineConfig(**{field: value}))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port_engine([_u64([1, 2])], EngineConfig(**{field: value}))
 

@@ -23,6 +23,7 @@ import torch
 from radixhashjoin_tpu.config import EngineConfig as JaxConfig
 from radixhashjoin_tpu.models.batch import BatchExecutor as JaxBatch
 from radixhashjoin_tpu.ops import factorized as jax_factorized
+from radixhashjoin_tpu.oracle import OracleExecutor
 from radixhashjoin_tpu.storage import Relation
 from radixhashjoin_tpu.utils.limbs import (combine_weighted_segments,
                                            seg_chunk,
@@ -174,14 +175,25 @@ def test_wave_flags_and_sums_match_jax(ci):
 
 
 def test_huge_node_raises(monkeypatch):
-    """A node above _BIG_WAVE_ROWS needs the unported windowed pass."""
-    monkeypatch.setattr(factorized, "_BIG_WAVE_ROWS", 100)
+    """A node above _BIG_WAVE_ROWS takes the windowed huge-node pass (the
+    name is from when it raised): with both packages' thresholds shrunk,
+    the port's sums and NULLs equal the JAX engine's and the oracle's
+    (tests/test_torch_huge.py holds the pass itself against JAX)."""
+    for mod in (factorized, jax_factorized):
+        monkeypatch.setattr(mod, "_BIG_WAVE_ROWS", 1024)
     rng = np.random.default_rng(3)
-    ex = _port_executor([Relation([rng.integers(0, 9, 150).astype(U64)]),
-                         Relation([rng.integers(0, 9, 50).astype(U64)])])
-    q = tworkload.parse_query("0 1|0.0=1.0|1.0")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ex.run_batch([q])
+    rels = [Relation([rng.integers(0, 9, 1500).astype(U64),
+                      rng.integers(0, 1000, 1500).astype(U64)]),
+            Relation([rng.integers(0, 9, 50).astype(U64)])]
+    queries = [Query([0, 1], [JoinPred(0, 0, 1, 0)], [],
+                     [Projection(1, 0), Projection(0, 1)]),
+               Query([0, 1], [JoinPred(0, 0, 1, 0)],
+                     [FilterPred(0, 0, "=", 99)], [Projection(0, 1)])]
+    got = _port_executor(rels).run_batch(
+        [tworkload.parse_query(_line(q)) for q in queries])
+    want = [OracleExecutor(rels).execute(q) for q in queries]
+    assert got == want == JaxBatch(rels, JaxConfig()).run_batch(queries)
+    assert want[1] is None
 
 
 # ---- the int64 fold ----
