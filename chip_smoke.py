@@ -50,12 +50,13 @@ Phases (any failure raises and exits non-zero; nothing is swallowed):
      (ops/factorized.py _fused_node_pass), through Engine.run_workload:
      the Zipf join at 2^29 + 12345 fact rows and the star of
      scripts/bench_scale.py:315-349 (Zipf key 1, uniform key 2) at
-     2^29 + 4099, each against its closed-form oracle under
-     ftree_window_sort "off" and "on": first run and three warm walls,
-     tuples/s, peak memory, launches (the build and lookup at least once
-     a window), the sync check, the top device ops, and the warm wall
-     against the bound of the bytes the window pass reads (6 and 10 B a
-     fact row over 3.35 TB/s);
+     2^29 + 4099, each loaded through storage.Relation (its load-time
+     stats included in the set-up time) and held against its closed-form
+     oracle: first run and three warm walls, tuples/s, peak memory,
+     launches (the build and lookup at least once a window), the sync
+     check, the top device ops, and the warm wall against the bound of
+     the bytes the window pass reads (6 and 10 B a fact row over
+     3.35 TB/s);
   5. the kernel shootout, `bench_kernels --log-rows 26`, in-process:
      its lines, and the launches of its run (the radix kernels' path).
 
@@ -90,7 +91,6 @@ SHOOTOUT_LOG_ROWS = 26
 # phase 4b: past the 2^28-row huge-node threshold, ragged tails
 HUGE_ZIPF_ROWS = (1 << 29) + 12345
 HUGE_STAR_ROWS = (1 << 29) + 4099
-HUGE_WSORTS = ("off", "on")
 
 # the factorized wave's kernels; the radix kernels run on the shootout
 WAVE_KERNELS = ("bincount", "gather")
@@ -937,26 +937,9 @@ def _triangle(rng, dev, n):
 
 # ---- phase 4b: huge nodes (past 2^28 rows, the windowed pass) ----
 
-def _relation(cols):
-    """A Relation whose load-time stats (min, max, distinct) come from one
-    bincount a column, where the default computes np.unique: the same
-    numbers in O(n) for the huge phase's columns, whose values are all
-    below 2^20."""
-    from radixhashjoin_tpu_torch.storage import ColumnStats, Relation
-    rel = Relation(cols, compute_stats=False)
-    stats = []
-    for c in cols:
-        nz = np.flatnonzero(np.bincount(c.astype(np.intp)))
-        stats.append(ColumnStats(int(nz[0]), int(nz[-1]), len(nz)))
-    rel.set_stats(stats)
-    return rel
-
-
-def _huge_run(name, rels, q, expected, n_fact, n_tuples, bytes_per_row, dev,
-              wsort):
-    """One query whose fact node is past _BIG_WAVE_ROWS, under
-    ftree_window_sort=`wsort`: first run (launch counts from zero: the
-    main path of this phase), three warm runs, peak memory, the sync
+def _huge_run(name, rels, q, expected, n_fact, n_tuples, bytes_per_row, dev):
+    """One query whose fact node is past _BIG_WAVE_ROWS: first run
+    (launch counts from zero: the main path of this phase), three warm runs, peak memory, the sync
     check, a profiled run, and the warm wall against the bound of the
     bytes the fused window pass must read (`bytes_per_row` a fact row,
     once, over 3.35 TB/s); exact against `expected`. Fails unless the
@@ -972,28 +955,28 @@ def _huge_run(name, rels, q, expected, n_fact, n_tuples, bytes_per_row, dev,
         torch.cuda.reset_peak_memory_stats()
     for k in kernels.LAUNCHES:
         kernels.LAUNCHES[k] = 0
-    eng = Engine(rels, EngineConfig(ftree_window_sort=wsort), device=dev)
+    eng = Engine(rels, EngineConfig(), device=dev)
     t0 = time.perf_counter()
     got = eng.run_workload([[q]])
     first_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     if got != expected:
-        raise AssertionError(f"{name} {wsort}: {got} != oracle {expected}")
+        raise AssertionError(f"{name}: {got} != oracle {expected}")
     if eng.batch_executor.counters["ftree_queries"] != 1:
         raise AssertionError(f"{name}: not on the factorized path")
     windows = -(-n_fact // factorized._win_rows())
     if dev.type == "cuda" and min(launches[k] for k in WAVE_KERNELS) < windows:
-        raise AssertionError(f"{name} {wsort}: fewer launches than the "
+        raise AssertionError(f"{name}: fewer launches than the "
                              f"{windows} windows: {launches}")
     warm = []
     for _ in range(3):
         t0 = time.perf_counter()
         if eng.run_workload([[q]]) != expected:
-            raise AssertionError(f"{name} {wsort}: warm rerun differs")
+            raise AssertionError(f"{name}: warm rerun differs")
         warm.append(time.perf_counter() - t0)   # ends in a readback
     warm_s = float(np.median(warm))
     bound = bound_ms(bytes_per_row * n_fact)
-    line = {"phase": "huge", "cell": name, "wsort": wsort,
+    line = {"phase": "huge", "cell": name,
             "fact_rows": n_fact, "join_input_tuples": n_tuples,
             "windows": windows, "window_rows": factorized._win_rows(),
             "first_run_s": first_s, "warm_query_s": warm,
@@ -1026,26 +1009,26 @@ def _free(dev):
 
 
 def phase_huge(dev, zipf_rows=HUGE_ZIPF_ROWS, star_rows=HUGE_STAR_ROWS,
-               n_keys=DIM_KEYS, wsorts=HUGE_WSORTS):
+               n_keys=DIM_KEYS):
     """Facts past the 2^28-row huge-node threshold through
     Engine.run_workload: the Zipf join of phase 4 at 2^29 + 12345 rows
     and the star of scripts/bench_scale.py:315-349 (Zipf key 1, uniform
     key 2, three sums) at 2^29 + 4099 rows, each against its closed-form
-    NumPy oracle under every sorted-window policy of `wsorts`. Returns
-    the lines and the launches of their first runs, summed."""
+    NumPy oracle. Returns the lines and the launches of their first
+    runs, summed."""
+    from radixhashjoin_tpu_torch.storage import Relation
     from radixhashjoin_tpu_torch.workload import (FilterPred, JoinPred,
                                                   Projection, Query)
     rng = np.random.default_rng(29)
     lines, total = [], {}
 
     def run(*args):
-        for ws in wsorts:
-            line, launches = _huge_run(*args, dev, ws)
-            for k, v in launches.items():
-                total[k] = total.get(k, 0) + v
-            lines.append(line)
-            print(json.dumps(line))
-            _free(dev)
+        line, launches = _huge_run(*args, dev)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        lines.append(line)
+        print(json.dumps(line))
+        _free(dev)
 
     # the Zipf join of phase 4 (scripts/bench_scale.py:253-279), past
     # 2^29 rows with a ragged tail; the fused pass reads the key (4 B) and
@@ -1062,8 +1045,8 @@ def phase_huge(dev, zipf_rows=HUGE_ZIPF_ROWS, star_rows=HUGE_STAR_ROWS,
     cnt = np.bincount(zk[wk].astype(np.intp), minlength=n_keys)
     exp1 = int((dval * cnt.astype(np.uint64) * keep).sum(dtype=np.uint64))
     del wk, cnt
-    rels = [_relation([zk, pay]),
-            _relation([np.arange(n_keys, dtype=np.uint64), dval])]
+    rels = [Relation([zk, pay]),
+            Relation([np.arange(n_keys, dtype=np.uint64), dval])]
     print(json.dumps({"phase": "huge", "cell": "zipf_huge",
                       "setup_s": time.perf_counter() - t0}))
     q = Query([0, 1], [JoinPred(0, 0, 1, 0)], [FilterPred(1, 1, "<", 900)],
@@ -1089,8 +1072,8 @@ def phase_huge(dev, zipf_rows=HUGE_ZIPF_ROWS, star_rows=HUGE_STAR_ROWS,
            int(d2v[k2[live].astype(np.intp)].sum(dtype=np.uint64))]
     del live
     keys = np.arange(n_keys, dtype=np.uint64)
-    rels = [_relation([k1, k2, fv]), _relation([keys, d1v]),
-            _relation([keys, d2v])]
+    rels = [Relation([k1, k2, fv]), Relation([keys, d1v]),
+            Relation([keys, d2v])]
     print(json.dumps({"phase": "huge", "cell": "star_huge",
                       "setup_s": time.perf_counter() - t0}))
     q = Query([0, 1, 2], [JoinPred(0, 0, 1, 0), JoinPred(0, 1, 2, 0)],

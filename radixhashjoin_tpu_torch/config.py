@@ -56,11 +56,11 @@ class EngineConfig:
     # written-order parity
     enable_join_reordering: bool = False
 
-    # sorted windows in the huge-node passes (ops/factorized.py
-    # _fused_node_pass): "off"; "on" sorts every window once by its
-    # most-consumed key column; "mono" only in passes of at most two
-    # operands; "auto" is the policy the card's A/B picked
-    # (models/batch.py _AUTO_WSORT, PERF.md)
+    # the reference's sorted windows in its huge-node passes ("auto",
+    # "on", "off", "mono"): accepted for config parity, and every value
+    # runs the port's one unsorted window pass (ops/factorized.py
+    # _fused_node_pass). Window order changes no result, and the sorted
+    # windows measured 3.0-3.5x slower on the H100 (ROADMAP.md §2).
     ftree_window_sort: str = "auto"
 
     # --- settings that need unported code (non-defaults raise) ---

@@ -61,10 +61,6 @@ from .stats import estimate_join_output, seed_stats
 _RETRY = object()
 _UNPLANNED = object()
 
-# what ftree_window_sort="auto" resolves to: chosen by the same-call A/B
-# of "off", "mono" and "on" on the H100 (PERF.md §6)
-_AUTO_WSORT = "off"
-
 
 def _combine(kind, seg) -> int:
     """Exact u64 of one packed partial (ops/stage.py part_shape): a
@@ -133,14 +129,6 @@ class BatchExecutor:
             kind = ("dense" if self.catalog.domain <= config.max_dense_domain
                     else "sort")
         self.join = JoinBackend(kind, self.catalog.domain)
-
-    def _resolve_wsort(self) -> str:
-        """The sorted-window policy of the huge-node passes
-        (config.ftree_window_sort). The reference's "auto" is keyed to
-        TPU device kinds; the port's is _AUTO_WSORT, the policy the card's
-        A/B picked."""
-        ws = self.config.ftree_window_sort
-        return _AUTO_WSORT if ws == "auto" else ws
 
     # ---- per-op phases (sort backend / fusion off) ----
 
@@ -769,7 +757,8 @@ class BatchExecutor:
                 for (plane, sh) in planes:
                     # static value-bit bound of this plane (load-time
                     # stats), kept in the spec so both packages plan
-                    # identical specs; the huge-node pass reads it
+                    # identical specs; only the reference's sorted
+                    # windows read it
                     pm = col_max >> sh
                     if len(planes) > 1:
                         pm = min(pm, 0xFFFF)
@@ -1204,7 +1193,7 @@ class BatchExecutor:
             tuple(probes_in), tuple(cols), tuple(vals), tuple(plan),
             self.catalog.domain, tuple(keep_slots), tuple(keep_mats),
             tuple(keep_probes), self.config.ftree_scatter,
-            self.config.ftree_gather, self._resolve_wsort())
+            self.config.ftree_gather)
         vid = len(vecs)
         vecs.append(packed)
         slot_new = dict(zip(keep_slots, zip(lr_k, lc_k)))

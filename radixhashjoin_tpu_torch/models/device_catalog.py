@@ -33,7 +33,7 @@ import torch
 
 from ..config import DEFAULT, EngineConfig
 from ..ops.filter import OP_CODE
-from ..storage import Relation
+from ..storage import Relation, small_value_counts
 from ..utils.padding import bucket_size
 
 # Values the identity (no-dictionary) encoding can represent (the
@@ -274,16 +274,15 @@ class DeviceCatalog:
         key = (rel_id, col)
         if key not in self._max_mult:
             vals = self.relations[rel_id].values[col]
-            vmax = self.relations[rel_id].stats[col].max
             if len(vals) == 0:
                 self._max_mult[key] = 1
-            elif vmax < max(len(vals), 1 << 20):
-                # values below the row count: one O(n) bincount, not
-                # np.unique's sort (2**29-row columns)
-                self._max_mult[key] = int(
-                    np.bincount(vals.astype(np.intp)).max())
             else:
-                _, counts = np.unique(vals, return_counts=True)
+                # one O(n) bincount where the values allow it (the
+                # 2**29-row facts), else np.unique's sort
+                counts = small_value_counts(
+                    vals, self.relations[rel_id].stats[col].max)
+                if counts is None:
+                    _, counts = np.unique(vals, return_counts=True)
                 self._max_mult[key] = int(counts.max())
         return self._max_mult[key]
 

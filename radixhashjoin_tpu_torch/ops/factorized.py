@@ -25,10 +25,10 @@ sentinel, the trailing-selection gates and the spec layout are the
 reference's, unchanged: its module docstring is the spec (spec =
 (filts, n_sels, edges, flag_nodes, root, projs, trail, tsels), and the
 column/value consumption order), except that each `projs` entry is
-(node, plane_bits) as the planner emits it: plane_bits is the plane's
-static value-bit bound, which sorted windows read. Sums differ only in
-representation: one int64 per projection plane (utils/limbs.py), not a
-(5, 3) limb fold.
+(node, plane_bits) as the planner emits it (plane_bits, the plane's
+static value-bit bound, serves only the reference's sorted windows and
+is ignored here). Sums differ only in representation: one int64 per
+projection plane (utils/limbs.py), not a (5, 3) limb fold.
 
 HUGE NODES (more than _BIG_WAVE_ROWS rows) never get a full-length
 message lookup or weight product. A message lookup on a huge node stays
@@ -40,16 +40,16 @@ all in ONE window loop per node (`_fused_node_pass`) that evaluates each
 shared lookup once per window. The windows run as a host loop whose
 bounds come from shapes, with a short last window (int64 sums and
 additive builds need no overlap), and nothing in it reads the device.
-Sorted windows (wsort "on", or "mono" for passes of at most two
-operands) sort each window once by its most-consumed key column,
-bit-packing the other operands into the sort word where their static
-bit bounds allow, and carry the rest through the permutation.
+The reference's sorted windows are not ported: every consumer is a
+multiset operation, so they change no result, and on the H100 they
+measured 3.0-3.5x slower (ROADMAP.md §2).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils import limbs
 from ..utils.limbs import fold_segments, fold_window, weighted_partials_big
 from .filter import OP_EQ, OP_LT
 from .tables import scatter_add_window, scatter_table, table_gather
@@ -64,7 +64,6 @@ class _Tree:
     """Per-spec state inside a wave."""
 
     __slots__ = ("spec", "edges", "flag_nodes", "root", "projs",
-                 "plane_bits",
                  "mask", "msg_mask", "tnode", "tnode_b", "tborn", "twidth",
                  "tsel_a", "tsel_b",
                  "pkey", "ckey", "pre", "children", "boolean",
@@ -152,9 +151,6 @@ def _parse_spec(spec, cols, vals):
         # only its own width (codes <= width - 1, so slicing drops nothing)
         t.pre.append(next_col()[:w] if pre_flag else None)
     t.planes = [next_col() for _proj in projs]
-    # static value-bit bound of each plane (31 = unknown), which lets a
-    # sorted window pack the plane into its sort word
-    t.plane_bits = [(b[0] if b else 31) for (_i, *b) in projs]
 
     t.children = {i: [] for i in range(k)}
     for ei, (p, _c, _pre, _nd, _w) in enumerate(edges):
@@ -203,9 +199,11 @@ def _none_anywhere(x: torch.Tensor) -> torch.Tensor:
 # ---- the huge-node machinery ----
 
 def _win_rows() -> int:
-    """Rows per window of every huge-node loop; min() lets tests shrink
-    it through _BIG_WAVE_ROWS."""
-    return min(1 << 26, _BIG_WAVE_ROWS)
+    """Rows per window of every huge-node loop: limbs._BIG_WINDOW_ROWS,
+    the window of weighted_partials_big too, read at call time so that
+    tests can shrink it; min() lets them shrink it through _BIG_WAVE_ROWS
+    as well."""
+    return min(limbs._BIG_WINDOW_ROWS, _BIG_WAVE_ROWS)
 
 
 def _win_guard(n: int) -> None:
@@ -223,16 +221,6 @@ def _windows(n: int, w_rows: int):
     return [(s, min(w_rows, n - s)) for s in range(0, n, w_rows)]
 
 
-def _slice_cached(arr, start, size, cache):
-    """Rows [start, start + size) of arr: the permuted copy a sorted
-    window carried through its sort, else a view."""
-    if cache is not None:
-        s = cache.get(("s", id(arr)))
-        if s is not None:
-            return s
-    return arr[start:start + size]
-
-
 def _ones(size: int, device) -> torch.Tensor:
     return torch.ones(size, dtype=torch.int32, device=device)
 
@@ -241,9 +229,8 @@ class _Lazy:
     """An unevaluated per-row weight over a HUGE node: the elementwise
     product of window-evaluable factors.
 
-      ("gather", table, keys, off, clamp, kbits) — table[keys + off],
-          clamped to 0/1 for boolean trees; kbits bounds the key values
-          (the edge width's bits), for the sorted-window packer
+      ("gather", table, keys, off, clamp) — table[keys + off], clamped
+          to 0/1 for boolean trees
       ("mat", vec)   — an already-materialized int32 vector
       ("mask", bvec) — boolean; False rows weigh 0
 
@@ -262,10 +249,9 @@ class _Lazy:
         self.factors = list(factors)
 
     @classmethod
-    def gather(cls, table, keys, off, clamp, kbits):
+    def gather(cls, table, keys, off, clamp):
         return cls(keys.shape[0],
-                   [("gather", table, keys, int(off), bool(clamp),
-                     int(kbits))])
+                   [("gather", table, keys, int(off), bool(clamp))])
 
     def with_mask(self, bvec):
         return (self if bvec is None
@@ -281,22 +267,20 @@ class _Lazy:
         per window cache is reused by every consumer sharing it."""
         for f in self.factors:
             if f[0] == "gather":
-                _tag, table, keys, off, clamp = f[:5]
+                _tag, table, keys, off, clamp = f
                 ck = ("g", id(table), id(keys), off, clamp)
                 if cache is not None and ck in cache:
                     yield cache[ck], clamp
                     continue
-                k = _slice_cached(keys, start, size, cache)
+                k = keys[start:start + size]
                 g = table_gather(table, k + off if off else k)
                 if clamp:
                     g = g > 0
                 if cache is not None:
                     cache[ck] = g
                 yield g, clamp
-            elif f[0] == "mat":
-                yield _slice_cached(f[1], start, size, cache), False
             else:
-                yield _slice_cached(f[1], start, size, cache), True
+                yield f[1][start:start + size], f[0] == "mask"
 
     def window(self, start, size, cache=None):
         """int32 weights of rows [start, start + size). `cache`: the
@@ -384,176 +368,7 @@ def _scatter_add_big(width, key, off, weight, mask, sent, impl="auto"):
     return acc
 
 
-def _collect_pass_arrays(scatters, folds):
-    """Ordered {id: array} of every window-sliced operand of a fused
-    pass: scatter keys/weights/masks, fold planes, and the arrays inside
-    every lazy factor — exactly what a sorted window carries through its
-    permutation."""
-    arrs = {}
-
-    def add(a):
-        if a is not None and id(a) not in arrs:
-            arrs[id(a)] = a
-
-    def add_lazy(w):
-        if isinstance(w, _Lazy):
-            for f in w.factors:
-                add(f[2] if f[0] == "gather" else f[1])
-        elif w is not None:
-            add(w)
-
-    for (_w, key, _off, weight, mask, _sent) in scatters:
-        add(key)
-        add_lazy(weight)
-        add(mask)
-    for (plane, lz, _pb) in folds:
-        add(plane)
-        add_lazy(lz)
-    return arrs
-
-
-def _pick_primary(scatters, folds):
-    """id of the key column consumed by the most scatters + lazy gathers
-    of this pass: the column whose sort order pays the most."""
-    cnt: dict = {}
-    for (_w, key, _off, weight, _m, _s) in scatters:
-        cnt[id(key)] = cnt.get(id(key), 0) + 1
-        if isinstance(weight, _Lazy):
-            for f in weight.factors:
-                if f[0] == "gather":
-                    cnt[id(f[2])] = cnt.get(id(f[2]), 0) + 1
-    for (_plane, lz, _pb) in folds:
-        for f in lz.factors:
-            if f[0] == "gather":
-                cnt[id(f[2])] = cnt.get(id(f[2]), 0) + 1
-    if not cnt:
-        return None
-    return max(cnt.items(), key=lambda kv: kv[1])[0]
-
-
-def _pass_bits(scatters, folds, arrs):
-    """Static value-bit bounds per operand array of a fused pass: scatter
-    keys by their table widths, gather keys by their edge widths, planes
-    by the spec's load-time stats, masks by 1, uint16 arrays by 16.
-    31 = unknown (carried raw by the packer: negative or unbounded
-    values must never enter a packed word)."""
-    bits = {}
-
-    def note(a, b):
-        bits[id(a)] = min(bits.get(id(a), 31), b)
-
-    def note_lazy(w):
-        if isinstance(w, _Lazy):
-            for f in w.factors:
-                if f[0] == "gather":
-                    note(f[2], f[5])
-                elif f[0] == "mask":
-                    note(f[1], 1)
-    for (width, key, _off, weight, mask, _sent) in scatters:
-        note(key, (width - 1).bit_length())
-        note_lazy(weight)
-        if mask is not None:
-            note(mask, 1)
-    for (plane, lz, pb) in folds:
-        note(plane, pb)
-        note_lazy(lz)
-    for i, a in arrs.items():
-        if a.dtype == torch.bool:
-            bits[i] = min(bits.get(i, 31), 1)
-        elif a.dtype == torch.uint16:
-            bits[i] = min(bits.get(i, 31), 16)
-    return bits
-
-
-def _plan_packing(primary, arrs, bits, with_live):
-    """First-fit-decreasing layout of a sorted window's operands into
-    int32 words: word 0 carries the primary key in its HIGH bits (so
-    sorting by word 0 sorts by key; ties among the low-bit payloads break
-    anyhow, which multiset consumers allow), the other known-bit payloads
-    fill word 0's low bits and then further words; unknown-bit operands
-    ride the permutation raw. Returns (layout, raw_ids, n_ops), or None
-    when packing would not shrink the number of sort operands.
-    layout: list of words, each a list of (payload_id, shift, bits);
-    word 0 starts with ("_key", shift, kbits). with_live packs the
-    reference's ragged-tail mask as pseudo-id "_live" (1 bit): the port's
-    windows end in a short window instead, so the engine always passes
-    False (the layout stays the reference's, and tests hold both)."""
-    pb = bits.get(primary, 31)
-    if pb >= 31:
-        return None
-    payloads = [(i, bits.get(i, 31)) for i in arrs if i != primary]
-    if with_live:
-        payloads.append(("_live", 1))
-    known = sorted([p for p in payloads if p[1] < 31],
-                   key=lambda x: -x[1])
-    raw = [p[0] for p in payloads if p[1] >= 31]
-    # word 0 starts with the key at its top; payloads stack downward
-    words = [[("_key", 31 - pb, pb)]]
-    space = [31 - pb]
-    for (i, b) in known:
-        for w in range(len(words)):
-            if space[w] >= b:
-                words[w].append((i, space[w] - b, b))
-                space[w] -= b
-                break
-        else:
-            words.append([(i, 31 - b, b)])
-            space.append(31 - b)
-    n_ops = len(words) + len(raw)
-    plain_ops = 1 + len(payloads)
-    if n_ops >= plain_ops:
-        return None
-    return words, raw, n_ops
-
-
-def _int32_operand(a: torch.Tensor) -> torch.Tensor:
-    """A uint16 plane widened (zero-extended) for index_select, which has
-    no uint16 kernel; other operands as they are."""
-    return a.to(torch.int32) if a.dtype == torch.uint16 else a
-
-
-def _sort_window(primary, arrs, pk, start, size, cache):
-    """Sort rows [start, start + size) by the primary key column once,
-    and put every operand's permuted window into `cache`, where the
-    pass's consumers find it (_slice_cached). torch.sort orders the
-    packed word 0 (key in its high bits; pk, the pass's _plan_packing
-    layout) or, where packing declines (pk None), the key itself; the
-    other operands follow the permutation through index_select. Unpacked
-    payloads stay int32 (a bool mask goes back to bool): every consumer
-    widens what it reads."""
-    sl = {i: arrs[i][start:start + size] for i in arrs}
-    if pk is None:
-        skey, perm = torch.sort(sl[primary])
-        cache[("s", primary)] = skey
-        for i in arrs:
-            if i != primary:
-                cache[("s", i)] = _int32_operand(sl[i]).index_select(0, perm)
-        return
-    words, raw, _n = pk
-    packed = []
-    for wlist in words:
-        wv = None
-        for (i, sh, _b) in wlist:
-            v = sl[primary if i == "_key" else i].to(torch.int32) << sh
-            wv = v if wv is None else wv | v
-        packed.append(wv)
-    w0, perm = torch.sort(packed[0])
-    for wi, wlist in enumerate(words):
-        wv = w0 if wi == 0 else packed[wi].index_select(0, perm)
-        for (i, sh, b) in wlist:
-            v = (wv >> sh) & ((1 << b) - 1)
-            if i == "_key":
-                cache[("s", primary)] = v
-            elif arrs[i].dtype == torch.bool:
-                cache[("s", i)] = v != 0
-            else:
-                cache[("s", i)] = v
-    for i in raw:
-        cache[("s", i)] = _int32_operand(sl[i]).index_select(0, perm)
-
-
-def _fused_node_pass(n, scatters, folds, flag_idx, impl="auto",
-                     wsort="off"):
+def _fused_node_pass(n, scatters, folds, flag_idx, impl="auto"):
     """ONE window loop over a huge node serving every consumer at once:
     message-table builds (each into its own running table), exact
     projection folds, and the root NULL flag. Each window evaluates
@@ -564,31 +379,15 @@ def _fused_node_pass(n, scatters, folds, flag_idx, impl="auto",
 
     scatters: [(width, key, off, weight, mask, sent)], the semantics of
         _scatter_add_big (weight: None | vector | _Lazy).
-    folds: [(plane, lazy_weight, plane_bits)]; the lazy weight already
-        carries its msg_mask factor.
+    folds: [(plane, lazy_weight)]; the lazy weight already carries its
+        msg_mask factor.
     flag_idx: the folds index whose any(weight > 0) is also wanted (the
         root emptiness bit), or None.
-    wsort: "off"; "on" sorts every window once by the pass's
-        most-consumed key column and carries every other operand window
-        through the same permutation (builds, folds and flags are
-        multiset operations, so row order within a window is free);
-        "mono" does so only for passes of at most two operands (one key
-        and one plane, the Zipf shape). A sorted pass of three or more
-        operands runs quarter windows, as in the reference.
     Returns ([A_i int32 tables], [fold_i 0-d int64 sums], anyp or None).
-    The windows are disjoint, the last one short."""
+    The windows are disjoint, the last one short, and unsorted: the
+    reference's sorted windows (its wsort) reorder rows inside a window,
+    which no consumer here can see (config.py ftree_window_sort)."""
     _win_guard(n)
-    primary = (_pick_primary(scatters, folds)
-               if wsort != "off" else None)
-    arrs = (_collect_pass_arrays(scatters, folds) if primary is not None
-            else None)
-    if primary is not None and wsort == "mono" and len(arrs) > 2:
-        primary = arrs = None
-    pk = (_plan_packing(primary, arrs, _pass_bits(scatters, folds, arrs),
-                        False) if primary is not None else None)
-    w_rows = _win_rows()
-    if primary is not None and len(arrs) > 2:
-        w_rows = max(w_rows // 4, 1)
     device = (scatters[0][1] if scatters else folds[0][0]).device
     acc_a = [torch.zeros(s[0], dtype=torch.int32, device=device)
              for s in scatters]
@@ -596,13 +395,12 @@ def _fused_node_pass(n, scatters, folds, flag_idx, impl="auto",
             for _ in folds]
     flag = (torch.zeros((), dtype=torch.bool, device=device)
             if flag_idx is not None else None)
-    for start, size in _windows(n, w_rows):
+    for start, size in _windows(n, _win_rows()):
         cache = {}
-        if primary is not None:
-            _sort_window(primary, arrs, pk, start, size, cache)
-        for acc, (width, key, off, weight, mask, sent) in zip(acc_a,
-                                                             scatters):
-            k = _slice_cached(key, start, size, cache)
+        end = start + size
+        for acc, (_width, key, off, weight, mask, sent) in zip(acc_a,
+                                                              scatters):
+            k = key[start:end]
             if off:
                 k = k + off
             if isinstance(weight, _Lazy):
@@ -610,25 +408,17 @@ def _fused_node_pass(n, scatters, folds, flag_idx, impl="auto",
             elif weight is None:
                 w = _ones(size, device)
             else:
-                w = _slice_cached(weight, start, size, cache)
+                w = weight[start:end]
             if mask is not None:
-                mk = _slice_cached(mask, start, size, cache)
-                if primary is not None and id(key) == primary:
-                    # the window is sorted by this key: zeroing the
-                    # WEIGHT keeps the build's result (adding 0) and the
-                    # key order; key codes are always < width by the
-                    # planner's construction
-                    w = torch.where(mk, w, 0)
-                else:
-                    k = torch.where(mk, k, sent)
-                    w = torch.where(mk, w, 0)
+                mk = mask[start:end]
+                k = torch.where(mk, k, sent)
+                w = torch.where(mk, w, 0)
             scatter_add_window(acc, k, w, impl)
-        for fi, (plane, lz, _pb) in enumerate(folds):
+        for fi, (plane, lz) in enumerate(folds):
             c = lz.window(start, size, cache)
             if fi == flag_idx:
                 flag = flag | torch.any(c > 0)
-            sums[fi] = sums[fi] + fold_window(
-                _slice_cached(plane, start, size, cache), c)
+            sums[fi] = sums[fi] + fold_window(plane[start:end], c)
     return acc_a, sums, flag
 
 
@@ -643,17 +433,14 @@ def _masked_scatter_operands(key, off, w, mm, sent):
             _ones(key.shape[0], key.device) if w is None else w)
 
 
-def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto",
-                   wsort="off"):
+def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto"):
     """Execute MANY factorized trees in one level-batched wave.
 
     wspecs: tuple of (spec, n_cols, n_vals); cols/vals hold every spec's
     operands back to back. Returns (flags, sums): flags is a list of 0-d
     bool tensors in spec order (within a spec: the flag_nodes flags, then
     the M/trailing flag); sums is an int64 vector with one wrapped u64
-    SUM per projection plane, in spec order. wsort: the sorted-window
-    policy of the huge-node passes ("off", "on", "mono";
-    _fused_node_pass)."""
+    SUM per projection plane, in spec order."""
     trees = []
     ci = vi = 0
     for (spec, nc, nv) in wspecs:
@@ -711,8 +498,7 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto",
                 w = t.edges[ei][4]
                 scats.append((w, t.ckey[ei], 0, t.beta[c], t.msg_mask[c], w))
             b_list, _f, _a = _fused_node_pass(
-                t.ckey[eis[0]].shape[0], scats, [], None, impl=scatter,
-                wsort=wsort)
+                t.ckey[eis[0]].shape[0], scats, [], None, impl=scatter)
             for ei, bb in zip(eis, b_list):
                 up_part[(id(t), ei)] = bb
         parts.extend(up_part[(id(t), ei)] for (t, ei) in bg)
@@ -725,9 +511,8 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto",
             if t.pkey[ei].shape[0] > _BIG_WAVE_ROWS:
                 # huge PARENT: the lookup stays lazy; boolean trees clamp
                 # per window inside the factor
-                kb = (t.edges[ei][4] - 1).bit_length()
                 resolved.append((t, ei, _Lazy.gather(mega, t.pkey[ei], off,
-                                                     t.boolean, kbits=kb)))
+                                                     t.boolean)))
                 continue
             gks.append(t.pkey[ei] + off)
             meta.append((t, ei, t.pkey[ei].shape[0]))
@@ -809,11 +594,10 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto",
                 if (i == t.root and t.tnode is None and flag_idx is None
                         and t.msg_mask[i] is t.mask[i]):
                     flag_idx = len(folds)
-                folds.append((plane, m_.with_mask(t.msg_mask[i]),
-                              t.plane_bits[pi]))
+                folds.append((plane, m_.with_mask(t.msg_mask[i])))
                 fold_pi.append(pi)
             a_list, fold_list, anyp = _fused_node_pass(
-                n_node, scats, folds, flag_idx, impl=scatter, wsort=wsort)
+                n_node, scats, folds, flag_idx, impl=scatter)
             for ei, ah in zip(eis, a_list):
                 part_of[(id(t), ei)] = ah
             for pi, f in zip(fold_pi, fold_list):
@@ -827,8 +611,7 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto",
             off = offs[(id(t), ei)]
             if t.ckey[ei].shape[0] > _BIG_WAVE_ROWS:
                 t.alpha[t.edges[ei][1]] = _Lazy.gather(
-                    A, t.ckey[ei], off, t.boolean,
-                    kbits=(t.edges[ei][4] - 1).bit_length())
+                    A, t.ckey[ei], off, t.boolean)
                 continue
             gks.append(t.ckey[ei] + off)
             meta.append((t, ei, t.ckey[ei].shape[0]))
@@ -844,8 +627,7 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto",
         mask, msg_mask = t.mask, t.msg_mask
         # nodes with SEVERAL pending lazy folds (a u64 column's 16-bit
         # planes, or several projected columns of one huge node) fold in
-        # one fused window pass sharing the weight lookups; under sorted
-        # windows a single fold takes the fused pass too
+        # one fused window pass sharing the weight lookups
         by_node: dict = {}
         for pi, ((i, *_b), plane) in enumerate(zip(t.projs, t.planes)):
             if pi in t.done_folds:
@@ -854,15 +636,15 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto",
             if isinstance(m, _Lazy):
                 by_node.setdefault(i, []).append((pi, plane, m))
         for i, lst in by_node.items():
-            if len(lst) < 2 and wsort == "off":
+            if len(lst) < 2:
                 continue
             flag_idx = (0 if (i == t.root and t.tnode is None
                               and t.done_flag is None
                               and msg_mask[i] is mask[i]) else None)
             _al, fold_list, anyp = _fused_node_pass(
                 lst[0][1].shape[0], [],
-                [(plane, m.with_mask(msg_mask[i]), t.plane_bits[pi])
-                 for (pi, plane, m) in lst], flag_idx, wsort=wsort)
+                [(plane, m.with_mask(msg_mask[i])) for (pi, plane, m) in lst],
+                flag_idx)
             for (pi, _plane, _m), f in zip(lst, fold_list):
                 t.done_folds[pi] = f
             if anyp is not None:

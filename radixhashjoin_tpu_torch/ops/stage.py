@@ -100,8 +100,7 @@ def part_shape(kind) -> int:
 
 def run_stage(live_rows, live_cnt, mats, icounts, probes, cols, vals, plan,
               domain: int, keep_slots=(), keep_mats=(), keep_probes=(),
-              ftree_scatter="auto", ftree_gather="auto",
-              ftree_wsort="off"):
+              ftree_scatter="auto", ftree_gather="auto"):
     """Execute one fused stage for a round of queries.
 
     Returns (packed, kept live_rows, kept live_cnt, kept mats, kept
@@ -109,8 +108,7 @@ def run_stage(live_rows, live_cnt, mats, icounts, probes, cols, vals, plan,
     [flags | spec ok-flags | probe totals | partials]; keep_* are the
     planner's keep sets (only a query that emitted a probe continues
     next round). Nothing here reads the device: counts stay 0-d device
-    tensors, sizes are static. ftree_wsort: the factorized wave's
-    sorted-window policy ("off", "on", "mono")."""
+    tensors, sizes are static."""
     lr = list(live_rows)
     lc = list(live_cnt)
     mats = list(mats)
@@ -286,8 +284,7 @@ def run_stage(live_rows, live_cnt, mats, icounts, probes, cols, vals, plan,
             fflags, sums = run_ftree_wave(wspecs, cols[ci:ci + n_cols],
                                           vals[vi:vi + n_vals],
                                           scatter=ftree_scatter,
-                                          gather=ftree_gather,
-                                          wsort=ftree_wsort)
+                                          gather=ftree_gather)
             ci += n_cols
             vi += n_vals
             flags.extend(fflags)

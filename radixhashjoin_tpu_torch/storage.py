@@ -5,8 +5,11 @@ The on-disk contract is the reference binary's (structs.cpp:17-63 of the
 C++ engine): little-endian ``[num_tuples u64][num_columns u64]``, then
 the columns back to back, each ``num_tuples`` uint64s; the file size must
 equal ``(t*c + 2) * 8``. Columns are zero-copy ``np.memmap`` views on the
-host. Per-column stats (min / max / exact distinct, distinct by sorting)
-drive the catalog's encoding and the planner's caps.
+host. Per-column stats (min / max / exact distinct) drive the catalog's
+encoding and the planner's caps. The distinct count sorts a column, as
+the reference does, unless its values lie below max(rows, 2**20): then
+one O(n) bincount gives the same numbers (`small_value_counts`), which
+matters on the 2**29-row facts of the huge-node path.
 
 The reference also has a C++ loader (runtime/native.py) with identical
 results; the port loads with NumPy only (ROADMAP.md).
@@ -20,6 +23,18 @@ from typing import List, Optional
 import numpy as np
 
 INT32_MAX = 2**31 - 1
+
+# a column whose values lie below max(rows, this) counts its values with
+# one bincount instead of np.unique's sort
+_BINCOUNT_MIN_RANGE = 1 << 20
+
+
+def small_value_counts(col: np.ndarray, vmax: int) -> Optional[np.ndarray]:
+    """np.bincount of a non-empty column whose largest value `vmax` lies
+    below max(len(col), 2**20), else None (the caller sorts instead)."""
+    if vmax >= max(len(col), _BINCOUNT_MIN_RANGE):
+        return None
+    return np.bincount(col.astype(np.intp))
 
 
 @dataclasses.dataclass
@@ -58,8 +73,14 @@ class Relation:
             if len(col) == 0:
                 self.stats.append(ColumnStats(0, 0, 0))
                 continue
-            self.stats.append(ColumnStats(int(col.min()), int(col.max()),
-                                          int(len(np.unique(col)))))
+            vmax = int(col.max())
+            counts = small_value_counts(col, vmax)
+            if counts is None:
+                self.stats.append(ColumnStats(int(col.min()), vmax,
+                                              int(len(np.unique(col)))))
+                continue
+            nz = np.flatnonzero(counts)
+            self.stats.append(ColumnStats(int(nz[0]), vmax, len(nz)))
 
     def set_stats(self, stats: List[ColumnStats]) -> None:
         self.stats = stats

@@ -74,8 +74,9 @@ def fold_window(vals: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     return torch.sum(vals.to(torch.int64) * weights.to(torch.int64))
 
 
-# rows per window of weighted_partials_big; read at call time so that
-# tests can shrink it
+# rows per window of weighted_partials_big and of every huge-node loop
+# (ops/factorized.py _win_rows); read at call time so that tests can
+# shrink it
 _BIG_WINDOW_ROWS = 1 << 26
 
 

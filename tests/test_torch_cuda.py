@@ -636,8 +636,7 @@ def _huge_shrunk(monkeypatch):
     monkeypatch.setattr(device_catalog, "_NARROW_PLANE_MIN_ROWS", 1024)
 
 
-@pytest.mark.parametrize("wsort", ["off", "on", "mono"])
-def test_huge_pass_cuda_matches_cpu(dev, monkeypatch, wsort):
+def test_huge_pass_cuda_matches_cpu(dev, monkeypatch):
     """The windowed huge-node pass at shrunken thresholds on the card: a
     single join, a star with dimension projections, a fact filter, a
     NULL, a wiped boolean component and a chain of two huge nodes, equal
@@ -671,7 +670,7 @@ def test_huge_pass_cuda_matches_cpu(dev, monkeypatch, wsort):
               [FilterPred(0, 1, "<", 800)],
               [Projection(0, 1), Projection(2, 2)]),
     ]
-    cfg = EngineConfig(ftree_window_sort=wsort)
+    cfg = EngineConfig()
     before = dict(kernels.LAUNCHES)
     got = Engine(rels, cfg, device=dev).run_batch(queries)
     grew = {k: kernels.LAUNCHES[k] - before[k] for k in before}

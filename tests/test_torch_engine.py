@@ -299,7 +299,8 @@ def test_huge_node_raises(monkeypatch):
 ])
 def test_unported_config_raises(field, value, monkeypatch):
     if field == "ftree_window_sort":
-        # ported: sorted windows run (and match JAX) on a huge node
+        # accepted: the port's one unsorted window pass gives the lines
+        # of the reference's sorted windows on a huge node
         _huge_agree(monkeypatch, EngineConfig(**{field: value}))
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):

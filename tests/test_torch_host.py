@@ -121,6 +121,36 @@ def test_relation_files_and_stats_match_reference(tmp_path):
         tstorage.load_relation(path)
 
 
+@pytest.mark.parametrize("case", ["small_range", "below_rows",
+                                  "range_edge", "wide", "one_row"])
+def test_relation_stats_by_bincount_match_reference(case):
+    """Columns whose values lie below max(rows, 2**20) take their stats
+    from one bincount (storage.small_value_counts), the rest from
+    np.unique as in the reference: the same min, max and distinct count
+    either way."""
+    rng = np.random.default_rng(len(case))
+    n = 5000
+    if case == "small_range":
+        col = rng.integers(1000, 3000, n)
+    elif case == "below_rows":
+        n = (1 << 20) + 4096
+        col = rng.integers((1 << 20) - 7, n, n)
+    elif case == "range_edge":
+        col = rng.integers(0, 1 << 20, n)
+        col[:2] = [(1 << 20) - 1, 17]
+    elif case == "wide":
+        col = rng.integers(1 << 20, 1 << 40, n)
+    else:
+        n, col = 1, np.array([123456])
+    col = col.astype(U64)
+    vmax = int(col.max())
+    counts = tstorage.small_value_counts(col, vmax)
+    assert (counts is None) == (case == "wide")
+    ours, ref = tstorage.Relation([col]), jstorage.Relation([col])
+    assert (dataclasses.astuple(ours.stats[0])
+            == dataclasses.astuple(ref.stats[0]))
+
+
 def test_config_defaults_match_reference():
     """Every field the port keeps has the reference's default, except
     stage_group (the port runs a batch as one round)."""

@@ -1,8 +1,8 @@
 """The port's huge-node windowed pass (radixhashjoin_tpu_torch/ops/
-factorized.py _Lazy, _scatter_add_big, _fused_node_pass and the sorted
-windows; utils/limbs.py weighted_partials_big; the uint16 projection
-planes of models/device_catalog.py; ops/tables.py scatter_add_window)
-against the JAX package on the same inputs.
+factorized.py _Lazy, _scatter_add_big, _fused_node_pass; utils/limbs.py
+weighted_partials_big; the uint16 projection planes of models/
+device_catalog.py; ops/tables.py scatter_add_window) against the JAX
+package on the same inputs.
 
 Every test shrinks both packages' thresholds alike (_BIG_WAVE_ROWS =
 2048, _BIG_WINDOW_ROWS = 4 * WCHUNK, _NARROW_PLANE_MIN_ROWS = 1024), so
@@ -12,13 +12,15 @@ tests/test_factorized.py (lazy gathers, the lazy star, uint16 planes,
 window builds, sorted windows, two huge nodes of different lengths,
 unpackable payloads): the port's Engine and the JAX Engine run the same
 seeded relations under ftree_window_sort "off" and "on", and their lines
-must equal each other and the oracle's. The unit tests hold the window
-machinery itself against its JAX counterpart: _fused_node_pass (tables
-element-exact, each int64 fold equal to the JAX (5, 3) fold decoded by
-combine_weighted_segments, the NULL flag equal), weighted_partials_big,
-the sorted-window planners (_pick_primary, _pass_bits, _plan_packing)
-and scatter_add_window onto a nonzero accumulator. Tolerance: exact
-equality everywhere.
+must equal each other and the oracle's. The port accepts every
+ftree_window_sort value and runs one unsorted window pass for all of
+them, so its lines under "on" are held against the reference's sorted
+windows. The unit tests hold the window machinery itself against its
+JAX counterpart: _fused_node_pass under each of the reference's window
+policies and at several window sizes (tables element-exact, each int64
+fold equal to the JAX (5, 3) fold decoded by combine_weighted_segments,
+the NULL flag equal), weighted_partials_big and scatter_add_window onto
+a nonzero accumulator. Tolerance: exact equality everywhere.
 """
 
 import jax
@@ -150,8 +152,8 @@ def test_lazy_star_multi_edge_matches_jax():
 
 
 def test_sorted_windows_mono_matches_jax():
-    """"mono" sorts the 2-operand passes only; the single join's pass
-    sorts, the star's does not."""
+    """The reference's "mono" sorts its 2-operand passes only (the single
+    join's, not the star's); the port's unsorted pass gives its lines."""
     rels = _star_rels(97, **STAR_SHAPE)
     queries = [Query([0, 1], [JoinPred(0, 0, 1, 0)], [],
                      [Projection(0, 2), Projection(1, 1)])] + STAR_QUERIES
@@ -280,8 +282,9 @@ def test_huge_chain_two_deep_matches_jax():
 
 def test_unpackable_payloads_match_jax(monkeypatch):
     """A 16-bit key width and a 16-bit plane cannot share one int32 sort
-    word: _plan_packing declines and the plain carrying sort runs, while
-    the dimension's 10-bit plane still packs."""
+    word: the reference's packer declines and its plain carrying sort
+    runs, while the dimension's 10-bit plane still packs. The port's
+    unsorted pass gives the same lines."""
     rng = np.random.default_rng(41)
     n = 3 * 4096 + 7
     nk = 60000
@@ -290,12 +293,12 @@ def test_unpackable_payloads_match_jax(monkeypatch):
     queries = [Query([0, 1], [JoinPred(0, 0, 1, 0)], [],
                      [Projection(0, 1), Projection(1, 1)])]
     seen = []
-    orig = tfac._plan_packing
+    orig = jfac._plan_packing
 
     def spy(*a):
         seen.append(orig(*a))
         return seen[-1]
-    monkeypatch.setattr(tfac, "_plan_packing", spy)
+    monkeypatch.setattr(jfac, "_plan_packing", spy)
     _lines_agree([fact, dim], queries)
     assert any(r is None for r in seen), seen
     assert any(r is not None for r in seen), seen
@@ -339,9 +342,11 @@ def _pass_inputs(kind, seed=3, n=3 * 2048 + 77):
             [(big, [("mat", w), g2], 31)], 0)
 
 
-def _build(mod, conv, inputs):
-    """Both packages' operands from _pass_inputs: each numpy array
-    converted once (shared arrays stay shared, by identity)."""
+def _build(mod, conv, inputs, bits):
+    """One package's operands from _pass_inputs: each numpy array
+    converted once (shared arrays stay shared, by identity). bits: keep
+    the reference's static bit bounds (its sorted windows read them; the
+    port's operands have none)."""
     seen = {}
 
     def c(a):
@@ -357,8 +362,9 @@ def _build(mod, conv, inputs):
         out = []
         for f in factors:
             if f[0] == "gather":
+                kw = {"kbits": f[5]} if bits else {}
                 out.append(mod._Lazy.gather(c(f[1]), c(f[2]), f[3], f[4],
-                                            kbits=f[5]).factors[0])
+                                            **kw).factors[0])
             else:
                 out.append((f[0], c(f[1])))
         return mod._Lazy(len(c(factors[0][2] if factors[0][0] == "gather"
@@ -366,26 +372,26 @@ def _build(mod, conv, inputs):
 
     scatters, folds, flag_idx = inputs
     sc = [(w, c(k), o, lazy(wt), c(m), s) for (w, k, o, wt, m, s) in scatters]
-    fo = [(c(p), lazy(lz), b) for (p, lz, b) in folds]
+    fo = [(c(p), lazy(lz), b) if bits else (c(p), lazy(lz))
+          for (p, lz, b) in folds]
     return sc, fo, flag_idx
 
 
 def _jax_side(inputs):
-    sc, fo, fi = _build(jfac, jnp.asarray, inputs)
+    sc, fo, fi = _build(jfac, jnp.asarray, inputs, True)
     return ([(w, k, np.int32(o), wt, m, np.int32(s))
              for (w, k, o, wt, m, s) in sc], fo, fi)
 
 
 def _port_side(inputs):
-    return _build(tfac, torch.from_numpy, inputs)
+    return _build(tfac, torch.from_numpy, inputs, False)
 
 
-@pytest.mark.parametrize("wsort", ["off", "on", "mono"])
-@pytest.mark.parametrize("kind", ["zipf", "star", "boolean", "mat"])
-def test_fused_node_pass_matches_jax(kind, wsort):
-    inputs = _pass_inputs(kind)
+def _fused_pass_agrees(inputs, wsort="off"):
+    """The port's fused pass == the reference's under window policy
+    `wsort`: tables element-exact, folds and the NULL flag equal."""
     n = len(inputs[1][0][0])
-    a, f, anyp = tfac._fused_node_pass(n, *_port_side(inputs), wsort=wsort)
+    a, f, anyp = tfac._fused_node_pass(n, *_port_side(inputs))
     ja, jf, janyp = jfac._fused_node_pass(n, *_jax_side(inputs), None,
                                           wsort=wsort)
     assert len(a) == len(ja) and len(f) == len(jf)
@@ -397,6 +403,26 @@ def test_fused_node_pass_matches_jax(kind, wsort):
     assert (anyp is None) == (janyp is None)
     if anyp is not None:
         assert bool(anyp) == bool(janyp)
+
+
+@pytest.mark.parametrize("wsort", ["off", "on", "mono"])
+@pytest.mark.parametrize("kind", ["zipf", "star", "boolean", "mat"])
+def test_fused_node_pass_matches_jax(kind, wsort):
+    """The port's one unsorted pass against each of the reference's
+    window policies: sorting a window reorders rows only."""
+    _fused_pass_agrees(_pass_inputs(kind), wsort)
+
+
+@pytest.mark.parametrize("window", [1000, 2048, 1 << 20])
+def test_fused_node_pass_window_sizes(monkeypatch, window):
+    """limbs._BIG_WINDOW_ROWS is the one window size of the port's
+    huge-node loops: a window that divides nothing (a short last window),
+    the shrunken default and one window for the whole node give the
+    reference's result."""
+    monkeypatch.setattr(tfac, "_BIG_WAVE_ROWS", 1 << 20)
+    monkeypatch.setattr(limbs, "_BIG_WINDOW_ROWS", window)
+    assert tfac._win_rows() == window
+    _fused_pass_agrees(_pass_inputs("star"))
 
 
 def test_scatter_add_big_matches_jax():
@@ -419,56 +445,6 @@ def test_lazy_any_positive_matches_jax():
         mask = rng.random(lz.n) < p
         assert bool(tfac._lazy_any_positive(lz, torch.from_numpy(mask))) \
             == bool(jfac._lazy_any_positive(jlz, jnp.asarray(mask)))
-
-
-def _positions(arrs):
-    return {i: pos for pos, i in enumerate(arrs)}
-
-
-def _norm_layout(pk, pos):
-    if pk is None:
-        return None
-    words, raw, n_ops = pk
-    return ([[(pos.get(i, i), sh, b) for (i, sh, b) in w] for w in words],
-            [pos[i] for i in raw], n_ops)
-
-
-@pytest.mark.parametrize("kind", ["zipf", "star", "boolean", "mat"])
-def test_sorted_window_plans_match_jax(kind):
-    """_collect_pass_arrays, _pick_primary, _pass_bits and _plan_packing
-    (with and without the reference's ragged-tail live bit) give the same
-    operands, primary, bit bounds and word layouts as the JAX planners,
-    array identities mapped to positions."""
-    inputs = _pass_inputs(kind)
-    sc, fo, _fi = _port_side(inputs)
-    jsc, jfo, _jfi = _jax_side(inputs)
-    arrs = tfac._collect_pass_arrays(sc, fo)
-    jarrs = jfac._collect_pass_arrays(jsc, jfo)
-    pos, jpos = _positions(arrs), _positions(jarrs)
-    assert len(arrs) == len(jarrs)
-    primary = tfac._pick_primary(sc, fo)
-    jprimary = jfac._pick_primary(jsc, jfo)
-    assert pos[primary] == jpos[jprimary]
-    bits = tfac._pass_bits(sc, fo, arrs)
-    jbits = jfac._pass_bits(jsc, jfo, jarrs)
-    assert ({pos[i]: b for i, b in bits.items()}
-            == {jpos[i]: b for i, b in jbits.items()})
-    for with_live in (False, True):
-        assert (_norm_layout(tfac._plan_packing(primary, arrs, bits,
-                                                with_live), pos)
-                == _norm_layout(jfac._plan_packing(jprimary, jarrs, jbits,
-                                                   with_live), jpos))
-
-
-def test_plan_packing_declines_like_jax():
-    """16-bit key + 16-bit plane: no layout shrinks the sort, both
-    decline; a 17-bit key beside 1-bit masks packs them into word 0."""
-    for kb, others in ((16, [16]), (17, [1, 1, 13]), (30, [1, 1])):
-        arrs = {i: None for i in range(len(others) + 1)}
-        bits = {0: kb, **{i + 1: b for i, b in enumerate(others)}}
-        for with_live in (False, True):
-            assert (tfac._plan_packing(0, arrs, bits, with_live)
-                    == jfac._plan_packing(0, arrs, bits, with_live))
 
 
 @pytest.mark.parametrize("source", ["counts", "weight_fn", "masked_anyp",
@@ -550,6 +526,19 @@ def test_scatter_add_window_onto_nonzero_accumulator(impl):
     tables.scatter_add_window(got, neg, torch.ones(3, dtype=torch.int32),
                               impl)
     assert torch.equal(got, before)
+
+
+@pytest.mark.parametrize("value", ["auto", "on", "off", "mono"])
+def test_window_sort_values_run_one_pass(value):
+    """Every ftree_window_sort value is accepted and plans the same wave
+    (the port has one window pass); an unknown value raises."""
+    rels = _star_rels(3, n=2048 + 5, k1=30, k2=20)
+    prels, pq = _to_port(rels, STAR_QUERIES[:1])
+    want = Engine(prels, EngineConfig(), device="cpu").run_workload([pq])
+    eng = Engine(prels, EngineConfig(ftree_window_sort=value), device="cpu")
+    assert eng.run_workload([pq]) == want
+    with pytest.raises(ValueError, match="ftree_window_sort"):
+        EngineConfig(ftree_window_sort=value + "x")
 
 
 @pytest.mark.parametrize("impl", ["mxu", "xla", "sorted"])
