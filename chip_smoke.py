@@ -15,7 +15,8 @@ Phases (any failure raises and exits non-zero; nothing is swallowed):
      bound (bytes moved over 3.35 TB/s); the build and lookup through
      bench_tables (Zipf and uniform 2^26-row builds, shared-memory-size
      tables, lookups into 2^20-, 2^18-, 48K- and 1024-entry tables); the
-     rank kernel on uniform, one-hot, sorted-run and all-dead digits; the
+     rank kernel on uniform, one-hot, sorted-run and all-dead digits and
+     on phase 4c's 2-bin binning at 2^25 digits; the
      partition and the 18-bit radix sort built on the rank kernel against
      torch.sort(stable=True), with every device op of a profiled call;
   3. the CLI on a synthetic catalog shaped like the contest's `small`
@@ -57,8 +58,22 @@ Phases (any failure raises and exits non-zero; nothing is swallowed):
      check, the top device ops, and the warm wall against the bound of
      the bytes the window pass reads (6 and 10 B a fact row over
      3.35 TB/s);
+  4c. the distributed layer (radixhashjoin_tpu_torch/parallel/) in a
+     world of one NCCL rank, this process, on phase 4's relations: the
+     Zipf join through the DistExecutor's factorized wave, through the
+     exchange pipeline at the default skew_heavy_fraction (its one digit
+     is heavy: the all_gather broadcast) and at 1.0 (the all_to_all
+     exchange), and the star through case 1, case 2 and the projections,
+     each against its closed-form oracle with its readbacks and
+     collectives a query, launches (the rank kernel bins every exchange
+     and gather), peak memory and top device ops; then phase 3c's 70
+     queries through `--mesh 1` (a subprocess) and the same per-rank
+     program in-process (50 queries in one wave, 20 exchanged), and
+     through two gloo ranks sharing the card;
   5. the kernel shootout, `bench_kernels --log-rows 26`, in-process:
-     its lines, and the launches of its run (the radix kernels' path).
+     its lines, and the launches of its run (the radix histogram's only
+     path; the rank kernel's launches in the kernels line are phase
+     4c's).
 
 Prints the kernels' JSON summary, the card's name and power limit, then
 as its last line {"ok": true, "device": {...}}. Without a CUDA card it
@@ -261,6 +276,22 @@ def _phase_radix_kernels(dev, gen, errs):
                               "yardstick (partition_order row)"),
                      n_bytes=n * 8 + -(-n // kernels.RANK_BLOCK) * bins * 4)
         rows.setdefault("rank_hist", row)
+    # the distributed layer's binning in a world of one (phase 4c): a
+    # 2^25-lane gather chunk's digits, 0 for the rank and 1 for dead
+    # lanes, which partition_order ranks with n_bins = 2
+    n_d = 1 << 25
+    digits = torch.randint(0, 2, (n_d,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    got = kernels.rank_hist_cuda(digits, 2)
+    want = rank_and_hist_torch(digits, 2)
+    torch.cuda.synchronize()
+    report("rank_hist", "n=2^25 digits in [0, 1], n_bins=2 (phase 4c's "
+           "binning)", list(zip(got, want)),
+           lambda: kernels.rank_hist_cuda(digits, 2),
+           lambda: rank_and_hist_torch(digits, 2),
+           library=(None, "none: see the 2^24 rows"),
+           n_bytes=n_d * 8 + -(-n_d // kernels.RANK_BLOCK) * 2 * 4)
+    del digits, got, want
 
     keys = torch.randint(0, 1 << 18, (n,), generator=gen, device=dev,
                          dtype=torch.int32)
@@ -558,6 +589,7 @@ def phase_fallback_cli(dev):
                     row["device_profile"] = _profile(
                         lambda: engine.run_workload(batches))
             print(json.dumps(row))
+    return lines["default_cli"]
 
 
 # ---- phase 4: data scale ----
@@ -665,10 +697,13 @@ def _profile(run, top=8, tries=3):
 
 def phase_scale(dev, zipf_rows=ZIPF_ROWS, star_rows=STAR_ROWS,
                 n_keys=DIM_KEYS, triangle_rows=TRIANGLE_ROWS):
+    """Phase 4, with phase 4c's distributed cells on its relations.
+    Returns (lines, [(distributed line, its first run's launches)])."""
     from radixhashjoin_tpu_torch.storage import Relation
     from radixhashjoin_tpu_torch.workload import (FilterPred, JoinPred,
                                                   Projection, Query)
     rng = np.random.default_rng(0)
+    dist = []
     print(json.dumps({"phase": "scale", "note": (
         f"zipf fact 2^{zipf_rows.bit_length() - 1} rows (BASELINE config 4 "
         f"asks >= 100M), star fact 2^{star_rows.bit_length() - 1} rows "
@@ -697,6 +732,19 @@ def phase_scale(dev, zipf_rows=ZIPF_ROWS, star_rows=STAR_ROWS,
     line["load_s"] = load_s
     lines.append(line)
     print(json.dumps(line))
+    # phase 4c on the same relations: the distributed layer, a world of
+    # one (the wave, the heavy broadcast, the all_to_all exchange)
+    from radixhashjoin_tpu_torch.config import EngineConfig
+    for cell, cfg in (
+            ("dist_zipf_ftree", EngineConfig(mesh_devices=1)),
+            ("dist_zipf_heavy", EngineConfig(mesh_devices=1,
+                                             factorized=False)),
+            ("dist_zipf_exchange", EngineConfig(mesh_devices=1,
+                                                factorized=False,
+                                                skew_heavy_fraction=1.0))):
+        dist.append(_dist_run(cell, [fact, dim], q, [f"{exp0} {exp1}"],
+                              zipf_rows + n_keys, dev, cfg))
+        _free(dev)
     del fact, dim, zk, wk
 
     # star (scripts/bench_scale.py:195-218): fact JOIN dim1 JOIN dim2
@@ -744,12 +792,19 @@ def phase_scale(dev, zipf_rows=ZIPF_ROWS, star_rows=STAR_ROWS,
                                    star_rows + 2 * n_keys, dev, cfg, dense)
         lines.append(line)
         print(json.dumps(line))
+    # phase 4c: the star through the exchange path: case 1, then case 2,
+    # then the projections
+    dist.append(_dist_run("dist_star_exchange", [fact] + dims, q,
+                          [" ".join(map(str, exp))], star_rows + 2 * n_keys,
+                          dev, EngineConfig(mesh_devices=1,
+                                            factorized=False)))
     del fact, dims, k1, k2, live
+    _free(dev)
 
     for line in _triangle(rng, dev, triangle_rows):
         lines.append(line)
         print(json.dumps(line))
-    return lines
+    return lines, dist
 
 
 def _sync_check(eng, run):
@@ -933,6 +988,205 @@ def _triangle(rng, dev, n):
                                 EngineConfig())
     batch["per_query_warm_s"] = line["warm_query_s"]
     return [line, batch]
+
+
+# ---- phase 4c: the distributed layer in a world of one ----
+
+def _dist_world(dev):
+    """This process as the one rank of a world (NCCL on the card, gloo on
+    the CPU), joined once; returns its Mesh."""
+    import torch.distributed as dist
+    from radixhashjoin_tpu_torch.parallel import multihost
+    from radixhashjoin_tpu_torch.parallel.mesh import make_mesh
+    if not dist.is_initialized():
+        multihost.init_multihost(f"127.0.0.1:{multihost.free_port()}", 1, 0,
+                                 device=dev.type)
+    return make_mesh(1)
+
+
+def _jax_readbacks(q, exchange):
+    """Readbacks of one query in the reference's DistExecutor, from its
+    structure: one stats readback per case-1 / case-2 join, one per
+    projection plane (narrow data: one plane a projection) and one for
+    the NULL flags; a factorized query reads back once. Its gather
+    capacities are unbounded in a world of one, so no overflow readback."""
+    if not exchange:
+        return 1
+    joined, n_probe = set(), 0
+    for j in q.joins:
+        if j.slot1 != j.slot2 and not (j.slot1 in joined
+                                       and j.slot2 in joined):
+            n_probe += 1
+        joined |= {j.slot1, j.slot2}
+    return n_probe + len(q.projections) + (1 if q.filters else 0)
+
+
+def _dist_run(name, rels, q, expected, n_tuples, dev, config):
+    """One query through the DistExecutor of a world of one: first run,
+    three warm runs, readbacks and collectives a query beside the
+    reference's readbacks, peak memory, the kernels launched in the first
+    run (the factorized wave's build and lookup, the exchange path's rank
+    kernel and lookup), and a profiled run; exact against `expected`.
+    Returns (line, first-run launches)."""
+    import torch
+    from radixhashjoin_tpu_torch import kernels
+    from radixhashjoin_tpu_torch.parallel.dist_executor import DistExecutor
+
+    mesh = _dist_world(dev)
+    exchange = not config.factorized
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ex = DistExecutor(rels, config, mesh=mesh)
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    calls = dict(mesh.calls)
+    t0 = time.perf_counter()
+    got = ex.run_batch([q])
+    first_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    calls = {k: mesh.calls[k] - calls[k] for k in calls}
+    if got != expected:
+        raise AssertionError(f"{name}: {got} != oracle {expected}")
+    path = "exchange_queries" if exchange else "ftree_queries"
+    if ex.counters[path] != 1:
+        raise AssertionError(f"{name}: not on the {path} path: "
+                             f"{ex.counters}")
+    need = ("rank_hist", "gather") if exchange else WAVE_KERNELS
+    if dev.type == "cuda" and min(launches[k] for k in need) == 0:
+        raise AssertionError(f"{name}: a kernel was not launched: "
+                             f"{launches}")
+    readbacks = ex.counters["readbacks"]
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        if ex.run_batch([q]) != expected:
+            raise AssertionError(f"{name}: warm rerun differs")
+        warm.append(time.perf_counter() - t0)   # ends in a readback
+    line = {"phase": "dist", "cell": name, "world": mesh.size,
+            "backend": "nccl" if dev.type == "cuda" else "gloo",
+            "factorized": config.factorized,
+            "skew_heavy_fraction": config.skew_heavy_fraction,
+            "join_input_tuples": n_tuples, "first_run_s": first_s,
+            "warm_query_s": warm,
+            "tuples_per_s": n_tuples / float(np.median(warm)),
+            "readbacks_per_query": readbacks,
+            "reference_readbacks_per_query": _jax_readbacks(q, exchange),
+            "collectives_per_query": calls,
+            "gather_retries": ex.counters["gather_retries"],
+            "launches_first_run": launches, "exact": True}
+    if dev.type == "cuda":
+        line["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        line["device_profile"] = _profile(lambda: ex.run_batch([q]))
+    print(json.dumps(line))
+    del ex
+    return line, launches
+
+
+def _gloo_rank(mesh, stream):
+    """One gloo rank of phase 4c's two-rank run on one card: the CLI's
+    per-rank program on the 70-query stream; rank 0 returns its lines."""
+    from radixhashjoin_tpu_torch.config import EngineConfig
+    from radixhashjoin_tpu_torch.parallel.worker import serve
+    out = io.StringIO()
+    engine = serve(mesh, EngineConfig(mesh_devices=mesh.size),
+                   io.StringIO(stream) if mesh.rank == 0 else None, out)
+    return out.getvalue().splitlines(), engine.dist_executor.counters
+
+
+def phase_dist_cli(dev, default_lines):
+    """Phase 3c's 70 queries through `--mesh 1` (a subprocess, its own
+    world of one) and through the same per-rank program in-process: lines
+    equal to the oracle's and the default CLI's, 50 queries in one
+    factorized wave and 20 through the exchange pipeline; then two gloo
+    ranks sharing this card. Returns the in-process run's launches."""
+    import torch
+    from radixhashjoin_tpu_torch import kernels
+    from radixhashjoin_tpu_torch.config import EngineConfig
+    from radixhashjoin_tpu_torch.models.engine import Engine
+    from radixhashjoin_tpu_torch.oracle import run_workload
+    from radixhashjoin_tpu_torch.parallel import multihost
+    from radixhashjoin_tpu_torch.parallel.worker import serve
+    from radixhashjoin_tpu_torch.storage import load_relation, write_relation
+    from radixhashjoin_tpu_torch.workload import parse_work_stream
+
+    rng = np.random.default_rng(2018)            # phase 3's catalog
+    rels = make_contest_catalog(rng)
+    tree = make_tree_queries(rng, rels)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i, cols in enumerate(rels):
+            paths.append(os.path.join(tmp, f"r{i}"))
+            write_relation(paths[-1], cols)
+        loaded = [load_relation(p) for p in paths]
+        planner = Engine(loaded, EngineConfig(), device=dev).batch_executor
+        extra, _kinds = make_fallback_queries(np.random.default_rng(7), rels,
+                                              planner)
+        work = tree + extra[:10] + ["F"] + extra[10:] + ["F"]
+        want = run_workload(loaded, parse_work_stream(work))
+        if default_lines != want:
+            raise AssertionError("phase 3c's default CLI lines differ from "
+                                 "the oracle's")
+        stream = "\n".join(paths + ["Done"] + work) + "\n"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "radixhashjoin_tpu_torch", "--device",
+             dev.type, "--mesh", "1"], input=stream, capture_output=True,
+            text=True, cwd=REPO, timeout=600)
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"--mesh 1 CLI exit {proc.returncode}:\n"
+                                 f"{proc.stderr[-4000:]}")
+        if proc.stdout.splitlines() != want:
+            raise AssertionError("--mesh 1 CLI lines differ from the oracle's")
+        mesh = _dist_world(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        engine = serve(mesh, EngineConfig(mesh_devices=1), io.StringIO(stream),
+                       out)
+        first_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        if out.getvalue().splitlines() != want:
+            raise AssertionError("in-process --mesh 1 lines differ")
+        counters = dict(engine.dist_executor.counters)
+        if (counters["ftree_queries"], counters["ftree_waves"],
+                counters["exchange_queries"]) != (len(tree) - tree.count("F"),
+                                                   1, 20):
+            raise AssertionError(f"--mesh 1 counters {counters}")
+        batches = parse_work_stream(work)
+        warm = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            if engine.run_workload(batches) != want:
+                raise AssertionError("--mesh 1 warm rerun differs")
+            warm.append(time.perf_counter() - t0)
+        line = {"phase": "dist_cli", "world": 1, "queries": len(want),
+                "lines_equal_oracle": True, "lines_equal_default_cli": True,
+                "counters": counters, "cli_subprocess_s": cli_s,
+                "inprocess_first_s": first_s, "inprocess_warm_s": warm,
+                "launches": launches}
+        if dev.type == "cuda":
+            line["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+            line["device_profile"] = _profile(
+                lambda: engine.run_workload(batches))
+        print(json.dumps(line))
+        del engine
+        # two gloo ranks on this one card (NCCL puts one rank on a card)
+        t0 = time.perf_counter()
+        outs = multihost.run_ranks(_gloo_rank, 2, (stream,), device=dev,
+                                   backend="gloo", timeout=600)
+        if outs[0][0] != want:
+            raise AssertionError("two gloo ranks: lines differ from the "
+                                 "oracle's")
+        print(json.dumps({"phase": "dist_cli_gloo2", "world": 2,
+                          "device": str(dev), "backend": "gloo",
+                          "lines_equal_oracle": True,
+                          "counters": outs[0][1],
+                          "seconds": time.perf_counter() - t0}))
+    return launches
 
 
 # ---- phase 4b: huge nodes (past 2^28 rows, the windowed pass) ----
@@ -1133,15 +1387,26 @@ def main() -> int:
                                 if "Used" in ln or "spill" in ln]}))
     timed, errs = phase_kernels(dev)
     launches = phase_cli(dev)
-    phase_fallback_cli(dev)
-    phase_scale(dev)
+    default_lines = phase_fallback_cli(dev)
+    _lines, dist = phase_scale(dev)
     _lines, launches_huge = phase_huge(dev)
     if min(launches_huge[k] for k in WAVE_KERNELS) == 0:
         raise AssertionError(f"the huge phase skipped a kernel: "
                              f"{launches_huge}")
-    # the wave's kernels on both main-path runs: the CLI's and the huge
-    # phase's first runs, each counted from zero
-    launches = {k: launches[k] + launches_huge.get(k, 0) for k in launches}
+    # the distributed phase's first runs: its four cells and the
+    # in-process --mesh 1 run, each counted from zero
+    launches_dist = phase_dist_cli(dev, default_lines)
+    from radixhashjoin_tpu_torch.parallel import multihost
+    multihost.shutdown()                 # phase 4c's world of one
+    for _line, first in dist:
+        launches_dist = {k: launches_dist[k] + first[k] for k in first}
+    if min(launches_dist[k] for k in WAVE_KERNELS + ("rank_hist",)) == 0:
+        raise AssertionError(f"the distributed phase skipped a kernel: "
+                             f"{launches_dist}")
+    # the wave's kernels on every main-path run: the CLI's, the huge
+    # phase's and the distributed phase's first runs
+    launches = {k: launches[k] + launches_huge.get(k, 0) + launches_dist[k]
+                for k in launches}
     launches_radix = phase_shootout(dev)
     for pkg in ("jax", "radixhashjoin_tpu"):
         if pkg in sys.modules:
@@ -1156,7 +1421,7 @@ def main() -> int:
         ("radix_histogram_cuda", "radix_hist", radix,
          "radixhashjoin_tpu/ops/pallas_radix.py:55", launches_radix),
         ("rank_hist_cuda", "rank_hist", radix,
-         "radixhashjoin_tpu/ops/pallas_partition.py:92", launches_radix)]
+         "radixhashjoin_tpu/ops/pallas_partition.py:92", launches_dist)]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[key], "max_abs_err": errs[key],

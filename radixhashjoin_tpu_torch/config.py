@@ -4,9 +4,8 @@ Field names and defaults are the reference's for everything the port
 reads. Fields whose non-default values need code that is not ported yet
 are kept too, so that a setting carried over from the reference raises
 NotImplementedError at construction instead of being ignored. The
-reference's knobs for layers the port does not have yet (radix
-exchange, skew handling, limb chunking, the native host runtime) are not
-fields here.
+reference's knobs for layers the port does not have yet (limb chunking,
+the native host runtime) are not fields here.
 """
 
 from __future__ import annotations
@@ -69,7 +68,25 @@ class EngineConfig:
     ftree_wave: bool = True
     stage_group: Optional[int] = None
     profile: bool = False
+
+    # --- the distributed layer (parallel/, one process per device) ---
+    # a world of N ranks under torch.distributed runs every query through
+    # parallel/dist_executor.py, the catalog row-sharded over the ranks
     mesh_devices: Optional[int] = None
+    # a level-0 digit holding more than this share of a case-1 join's
+    # right rows is broadcast (all_gather) instead of exchanged
+    skew_heavy_fraction: float = 0.25
+    # sub-exchanges of the case-1 left side (power of two dividing the
+    # shard width; 1 disables)
+    exchange_chunks: int = 4
+    # sub-gathers of a cross-rank rowid gather (skipped below 4096 lanes)
+    gather_chunks: int = 4
+    # chunks of the case-2 fresh-side broadcast and the case-3 pair-set
+    # test (each all_gather moves width / K lanes a rank)
+    broadcast_chunks: int = 4
+    # per-destination gather and exchange capacity starts at ~2x the
+    # uniform share and retries x4 on overflow; False pins the worst case
+    gather_capacity: bool = True
 
     def __post_init__(self) -> None:
         check_config(self)
@@ -78,7 +95,6 @@ class EngineConfig:
 # EngineConfig fields whose non-default values need code that is not
 # ported yet: field -> (allowed values, what it needs)
 _UNPORTED = {
-    "mesh_devices": ((None,), "the distributed layer (item 9)"),
     "force_oracle": ((False,), "the oracle route (item 13; the port has "
                                "no quiet route to the oracle)"),
     "ftree_wave": ((True,), "per-query ftree ops, kept out until an A/B "

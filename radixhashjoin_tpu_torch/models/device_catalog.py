@@ -20,8 +20,14 @@ reuses them. The encoding is the reference's, array for array:
   (`edge_key`), and a pristine leaf's message table comes precomputed
   (`bincount_table`, `edge_bincount`).
 
-Not ported: the row-sharded layout of the distributed executor
-(ROADMAP.md).
+Row sharding (the distributed executor, parallel/dist_executor.py): with
+a `mesh`, every per-row array (join/filter columns, projection planes,
+composite edge keys) holds only this rank's rows. Rank r owns global
+rowids [r * cap, (r + 1) * cap) of a relation, cap = `shard_cap(rel)` =
+bucket(ceil(rows / ranks)), zero-padded past the relation's end, so each
+rank holds ~1/N of the catalog; domain-sized tables (bincounts, the
+dictionary) and scalars stay whole on every rank. A row-sharded catalog
+stores no uint16 planes, as in the reference (its :180).
 """
 
 from __future__ import annotations
@@ -53,10 +59,12 @@ _UPLOAD_DTYPES = (np.int32, np.uint16)
 class DeviceCatalog:
     def __init__(self, relations: Sequence[Relation],
                  config: EngineConfig = DEFAULT, *,
-                 device: torch.device):
+                 device: Optional[torch.device] = None, mesh=None):
         self.relations = relations
         self.config = config
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(mesh.device if mesh is not None
+                                   else device)
         self._cols: Dict[tuple, torch.Tensor] = {}
         self._planes: Dict[tuple, list] = {}
         self._wide_planes: Dict[tuple, list] = {}
@@ -83,6 +91,24 @@ class DeviceCatalog:
                             f"{host.dtype}")
         return torch.from_numpy(np.ascontiguousarray(host)).to(self.device)
 
+    def shard_cap(self, rel_id: int) -> int:
+        """Rows of a relation each rank holds under row sharding:
+        bucket(ceil(rows / ranks)). Live sets use the same capacity, so a
+        rank's live rowids index its own column shards."""
+        rows = self.relations[rel_id].num_tuples
+        return self.bucket(-(-rows // self.mesh.size))
+
+    def _put_rows(self, rel_id: int, host: np.ndarray) -> torch.Tensor:
+        """Upload a per-row array of relation rel_id: whole, or this rank's
+        zero-padded shard of it under row sharding."""
+        if self.mesh is None:
+            return self._put(host)
+        cap = self.shard_cap(rel_id)
+        part = host[self.mesh.rank * cap:(self.mesh.rank + 1) * cap]
+        if len(part) < cap:
+            part = np.pad(part, (0, cap - len(part)))
+        return self._put(part)
+
     # ---- dictionary ----
 
     def _build_dictionary(self) -> None:
@@ -107,7 +133,8 @@ class DeviceCatalog:
         """Join/filter column on device: int32 values (identity) or codes."""
         key = (rel_id, col)
         if key not in self._cols:
-            self._cols[key] = self._put(self._host_codes(rel_id, col))
+            self._cols[key] = self._put_rows(rel_id,
+                                             self._host_codes(rel_id, col))
             if (self.dict_vals is None and key in self._planes
                     and self._planes[key][0][0].dtype == torch.uint16):
                 # a projection uploaded a uint16 plane before a join or
@@ -146,27 +173,28 @@ class DeviceCatalog:
         u64 SUM of the original column: one plane of the values when they
         fit int32, else 16-bit slices. Planes are int32, or uint16 on a
         relation of more than _NARROW_PLANE_MIN_ROWS rows where the
-        plane's values fit 16 bits."""
+        plane's values fit 16 bits (never under row sharding)."""
         key = (rel_id, col)
         if key not in self._planes:
             rel = self.relations[rel_id]
-            huge = rel.num_tuples > _NARROW_PLANE_MIN_ROWS
+            huge = (self.mesh is None
+                    and rel.num_tuples > _NARROW_PLANE_MIN_ROWS)
             narrow = huge and rel.stats[col].max < (1 << 16)
             if self.dict_vals is None:
                 if narrow and key not in self._cols:
                     # a uint16 copy only while no join or filter holds the
                     # int32 column (col() re-aliases the plane if one
                     # comes later); else the column itself costs nothing
-                    self._planes[key] = [(self._put(
-                        rel.values[col].astype(np.uint16)), 0)]
+                    self._planes[key] = [(self._put_rows(
+                        rel_id, rel.values[col].astype(np.uint16)), 0)]
                 else:
                     # identity encoding: the join/filter column IS the
                     # values
                     self._planes[key] = [(self.col(rel_id, col), 0)]
             elif rel.stats[col].max <= _INT32_MAX:
                 dt = np.uint16 if narrow else np.int32
-                self._planes[key] = [(self._put(
-                    rel.values[col].astype(dt)), 0)]
+                self._planes[key] = [(self._put_rows(
+                    rel_id, rel.values[col].astype(dt)), 0)]
             else:
                 host = rel.values[col]
                 hi = int(rel.stats[col].max).bit_length()
@@ -175,7 +203,7 @@ class DeviceCatalog:
                 for shift in range(0, hi, 16):
                     p = ((host >> np.uint64(shift))
                          & np.uint64(0xFFFF)).astype(dt)
-                    planes.append((self._put(p), shift))
+                    planes.append((self._put_rows(rel_id, p), shift))
                 self._planes[key] = planes
         return self._planes[key]
 
@@ -226,7 +254,8 @@ class DeviceCatalog:
         if key not in self._edge_keys:
             pk, ck = self._edge_key_host(rel_p, pcols, rel_c, ccols)
             cmax = int(max(pk.max(initial=0), ck.max(initial=0)))
-            self._edge_keys[key] = (self._put(pk), self._put(ck), cmax)
+            self._edge_keys[key] = (self._put_rows(rel_p, pk),
+                                    self._put_rows(rel_c, ck), cmax)
         return self._edge_keys[key]
 
     def edge_key_max_mult(self, rel_p: int, pcols: tuple, rel_c: int,

@@ -13,6 +13,11 @@ binary's stdin/stdout contract. Two executors share one DeviceCatalog:
   (models/executor.py), the materializing sort join one query at a
   time.
 
+With mesh_devices=N the engine is one rank of an N-rank run
+(parallel/): its catalog is row-sharded and every query runs through
+the DistExecutor (parallel/dist_executor.py), a batch's factorized
+queries in one distributed wave, the rest query by query.
+
 Both paths run each query through `_plan` first: the stats-driven join
 reordering of models/planner.py when enable_join_reordering is set.
 """
@@ -39,9 +44,22 @@ class Engine:
 
     def __init__(self, relations: Sequence[Relation],
                  config: EngineConfig = DEFAULT, *,
-                 device: torch.device):
+                 device: Optional[torch.device] = None, mesh=None):
+        """`device`: where a single-device engine runs. With
+        config.mesh_devices the engine is this rank's part of a
+        distributed run over `mesh` (default: the initialized world,
+        parallel/mesh.py make_mesh), on the mesh's device."""
         self.relations = list(relations)
         self.config = config
+        self.dist_executor = None
+        if config.mesh_devices:
+            from ..parallel.dist_executor import DistExecutor
+            self.dist_executor = DistExecutor(
+                self.relations, config, mesh=mesh,
+                n_devices=config.mesh_devices)
+            self.device = self.dist_executor.device
+            self.batch_executor = self.executor = None
+            return
         self.device = torch.device(device)
         if config.batch_execution:
             self.batch_executor = BatchExecutor(self.relations, config,
@@ -56,12 +74,16 @@ class Engine:
     @classmethod
     def from_paths(cls, paths: Sequence[str],
                    config: EngineConfig = DEFAULT, *,
-                   device: torch.device) -> "Engine":
-        return cls([load_relation(p) for p in paths], config, device=device)
+                   device: Optional[torch.device] = None,
+                   mesh=None) -> "Engine":
+        return cls([load_relation(p) for p in paths], config, device=device,
+                   mesh=mesh)
 
     def execute(self, q: Query) -> Optional[List[int]]:
-        """One query through the per-query executor: projection sums, or
-        None for a NULL line."""
+        """One query through the per-query executor (or the distributed
+        one): projection sums, or None for a NULL line."""
+        if self.dist_executor is not None:
+            return self.dist_executor.execute(self._plan(q))
         return self.executor.execute(self._plan(q))
 
     def _plan(self, q: Query) -> Query:
@@ -75,6 +97,9 @@ class Engine:
                       ) -> List[Optional[List[int]]]:
         """One query batch on the device: per-query sums (None = NULL
         line), unformatted."""
+        if self.dist_executor is not None and self.config.batch_execution:
+            return self.dist_executor.run_batch_raw(
+                [self._plan(q) for q in batch])
         if self.batch_executor is None:
             return [self.execute(q) for q in batch]
         return self.batch_executor.run_batch([self._plan(q) for q in batch])

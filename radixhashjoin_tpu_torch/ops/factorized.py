@@ -43,6 +43,16 @@ additive builds need no overlap), and nothing in it reads the device.
 The reference's sorted windows are not ported: every consumer is a
 multiset operation, so they change no result, and on the H100 they
 measured 3.0-3.5x slower (ROADMAP.md §2).
+
+DISTRIBUTED MODE (`mesh`, parallel/dist_ops.py d_ftree): every node
+column is this rank's row shard, and a per-spec validity mask (pad rows
+past the relation's end are dead) seeds every node mask. Each rank
+builds its rows into the message tables and ONE all_reduce per level
+table makes them global (the reference psums there); lookups, folds and
+flags stay local until the end, where one all_reduce of the packed
+[flag hits | sums] makes them global. Flags are carried as local
+any-hit bits throughout (a flag is NULL iff no rank hits), which is
+what lets them ride that one collective.
 """
 
 from __future__ import annotations
@@ -71,10 +81,13 @@ class _Tree:
                  "by_height", "by_depth", "done_folds", "done_flag")
 
 
-def _parse_spec(spec, cols, vals):
+def _parse_spec(spec, cols, vals, valid=None):
     """Consume one spec's cols/vals (reference docstring order) into a
     _Tree: masks, key columns, pre tables, and the static height/depth
-    schedules of the level-batched passes."""
+    schedules of the level-batched passes.
+
+    valid (distributed mode): valid(node) is the bool mask of the real
+    rows of this rank's shard of a node, which seeds the node's mask."""
     filts, n_sels, edges, flag_nodes, root, projs, trail, tsels = spec
     k = len(filts)
     t = _Tree()
@@ -91,10 +104,11 @@ def _parse_spec(spec, cols, vals):
         ci += 1
         return c
 
-    # per-node boolean masks: filters + same-slot selections
+    # per-node boolean masks: filters + same-slot selections, seeded by
+    # the shard's validity mask in distributed mode
     mask = []
     for i in range(k):
-        m = None
+        m = None if valid is None else valid(i)
         for opc in filts[i]:
             c = next_col()
             v = vals[vi]
@@ -191,9 +205,22 @@ def _concat(parts):
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
-def _none_anywhere(x: torch.Tensor) -> torch.Tensor:
-    """~any(x) as a 0-d bool tensor."""
-    return ~torch.any(x)
+def _all_reduce(t: torch.Tensor, mesh) -> torch.Tensor:
+    """A rank's message table made global (distributed mode), in place."""
+    return t if mesh is None else mesh.all_reduce(t)
+
+
+def _finish(hits, sums: torch.Tensor, mesh):
+    """(flags, sums) of a wave from its local any-hit bits and sums: a
+    flag is True (NULL) iff nothing hit. In distributed mode ONE
+    all_reduce of [hits | sums] makes both global (hit counts and int64
+    sums add; the sums wrap mod 2**64)."""
+    if mesh is None:
+        return [~h for h in hits], sums
+    packed = torch.cat([torch.stack(hits).to(torch.int64) if hits
+                        else sums.new_zeros(0), sums])
+    mesh.all_reduce(packed)
+    return list((packed[:len(hits)] == 0).unbind()), packed[len(hits):]
 
 
 # ---- the huge-node machinery ----
@@ -433,18 +460,24 @@ def _masked_scatter_operands(key, off, w, mm, sent):
             _ones(key.shape[0], key.device) if w is None else w)
 
 
-def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto"):
+def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto",
+                   mesh=None, valid=None):
     """Execute MANY factorized trees in one level-batched wave.
 
     wspecs: tuple of (spec, n_cols, n_vals); cols/vals hold every spec's
     operands back to back. Returns (flags, sums): flags is a list of 0-d
     bool tensors in spec order (within a spec: the flag_nodes flags, then
     the M/trailing flag); sums is an int64 vector with one wrapped u64
-    SUM per projection plane, in spec order."""
+    SUM per projection plane, in spec order.
+
+    mesh / valid (distributed mode, parallel/dist_ops.py d_ftree): this
+    rank's Mesh and per-spec validity masks (_parse_spec); the returned
+    flags and sums are then global."""
     trees = []
     ci = vi = 0
-    for (spec, nc, nv) in wspecs:
-        trees.append(_parse_spec(spec, cols[ci:ci + nc], vals[vi:vi + nv]))
+    for qi, (spec, nc, nv) in enumerate(wspecs):
+        trees.append(_parse_spec(spec, cols[ci:ci + nc], vals[vi:vi + nv],
+                                 None if valid is None else valid[qi]))
         ci += nc
         vi += nv
     device = cols[0].device       # every spec has key columns
@@ -483,8 +516,8 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto"):
                     t.msg_mask[c], t_sc)
                 idxs.append(i_)
                 ws.append(w_)
-            parts.append(scatter_table(_concat(idxs), _concat(ws), t_sc,
-                                       scatter))
+            parts.append(_all_reduce(scatter_table(
+                _concat(idxs), _concat(ws), t_sc, scatter), mesh))
         # huge-CHILD edges group by (tree, child): one fused window pass
         # per node serves every edge's build
         up_groups: dict = {}
@@ -500,7 +533,7 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto"):
             b_list, _f, _a = _fused_node_pass(
                 t.ckey[eis[0]].shape[0], scats, [], None, impl=scatter)
             for ei, bb in zip(eis, b_list):
-                up_part[(id(t), ei)] = bb
+                up_part[(id(t), ei)] = _all_reduce(bb, mesh)
         parts.extend(up_part[(id(t), ei)] for (t, ei) in bg)
         for (t, ei) in pr:
             parts.append(t.pre[ei])
@@ -567,8 +600,8 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto"):
                     t.msg_mask[p], t_sm)
                 idxs.append(i_)
                 ws.append(w_)
-            parts.append(scatter_table(_concat(idxs), _concat(ws), t_sm,
-                                       scatter))
+            parts.append(_all_reduce(scatter_table(
+                _concat(idxs), _concat(ws), t_sm, scatter), mesh))
         # huge-parent edges: ONE fused window pass per (tree, parent)
         # builds all of the node's A slices, folds its projections and
         # emits its NULL flag, sharing every per-window lookup
@@ -599,7 +632,7 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto"):
             a_list, fold_list, anyp = _fused_node_pass(
                 n_node, scats, folds, flag_idx, impl=scatter)
             for ei, ah in zip(eis, a_list):
-                part_of[(id(t), ei)] = ah
+                part_of[(id(t), ei)] = _all_reduce(ah, mesh)
             for pi, f in zip(fold_pi, fold_list):
                 t.done_folds[pi] = f
             if anyp is not None:
@@ -622,7 +655,7 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto"):
             o += n
 
     # ---- flags + sums per tree, emitted in spec order ----
-    flags, outs = [], []
+    hits, outs = [], []
     for t in trees:
         mask, msg_mask = t.mask, t.msg_mask
         # nodes with SEVERAL pending lazy folds (a u64 column's 16-bit
@@ -672,26 +705,27 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto"):
                 w = (m if msg_mask[i] is None
                      else torch.where(msg_mask[i], m, 0))
             tree_outs.append((plane, w))
-        flags.extend(_none_anywhere(mask[i]) for i in t.flag_nodes)
+        # each flag as its local any-hit bit (NULL iff nothing hits)
+        hits.extend(torch.any(mask[i]) for i in t.flag_nodes)
         if t.root >= 0 and t.tnode is None:
             br, mr = t.beta[t.root], mask[t.root]
             if t.done_flag is not None:
                 # emitted by a fused window loop
-                flags.append(~t.done_flag)
+                hits.append(t.done_flag)
             elif isinstance(br, _Lazy):
                 if root_fold is not None:
                     # the root projection's fold loop emits
                     # any(weight > 0) for free
-                    flags.append(("from_fold", root_fold))
+                    hits.append(("from_fold", root_fold))
                 else:
-                    flags.append(~_lazy_any_positive(br, mr))
+                    hits.append(_lazy_any_positive(br, mr))
             elif br is None:
-                flags.append(torch.zeros((), dtype=torch.bool, device=device)
-                             if mr is None else _none_anywhere(mr))
+                hits.append(torch.ones((), dtype=torch.bool, device=device)
+                            if mr is None else torch.any(mr))
             elif mr is None:
-                flags.append(_none_anywhere(br > 0))
+                hits.append(torch.any(br > 0))
             else:
-                flags.append(_none_anywhere(mr & (br > 0)))
+                hits.append(torch.any(mr & (br > 0)))
         elif t.tnode is not None:
             # NULL gate from the PRE-selection rows: part[r] == row r of
             # the trailing node participates in the joined multiset
@@ -718,13 +752,15 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto"):
                 supp.scatter_reduce_(
                     0, torch.where(part, t.tsel_a, W).to(torch.int64),
                     part.to(torch.int32), "amax")
+                # a value may participate on one rank and match on another
+                supp = _all_reduce(supp, mesh)
                 hit = supp[:W].index_select(0, t.tsel_b) > 0
-                flags.append(_none_anywhere(hit & part_b))
+                hits.append(torch.any(hit & part_b))
             else:
                 # native same-slot predicate: never NULLs by itself
                 # (Query.cpp:168-170) — NULL iff the pre-selection
                 # multiset is empty
-                flags.append(_none_anywhere(part))
+                hits.append(torch.any(part))
         outs.extend(tree_outs)
 
     # every projection folds in ONE segmented int64 pass, except in a
@@ -737,7 +773,7 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto"):
         if (total > _BIG_WAVE_ROWS
                 or any(isinstance(w, _Lazy) for _, w in outs)
                 or any(isinstance(p, str) for p, _w in outs)):
-            want_any = {f[1] for f in flags if isinstance(f, tuple)}
+            want_any = {f[1] for f in hits if isinstance(f, tuple)}
             sums, anyp = [], {}
             for oi, (plane, w) in enumerate(outs):
                 if isinstance(plane, str):       # ("done", fused fold)
@@ -751,7 +787,7 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto"):
                 else:
                     sums.append(weighted_partials_big(plane,
                                                       weight_fn=w.window))
-            flags = [(~anyp[f[1]] if isinstance(f, tuple) else f)
-                     for f in flags]
-            return flags, torch.stack(sums)
-    return flags, fold_segments(outs, device)
+            hits = [(anyp[f[1]] if isinstance(f, tuple) else f)
+                    for f in hits]
+            return _finish(hits, torch.stack(sums), mesh)
+    return _finish(hits, fold_segments(outs, device), mesh)

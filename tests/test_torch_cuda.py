@@ -680,3 +680,62 @@ def test_huge_pass_cuda_matches_cpu(dev, monkeypatch):
                    for q in queries]
     windows = -(-n // 2048)
     assert grew["bincount"] >= windows and grew["gather"] >= windows
+
+
+@pytest.mark.parametrize("n,n_bins", [(1, 1), (5000, 4), (1 << 20, 8)])
+def test_partition_by_digit_runs_the_rank_kernel(dev, n, n_bins):
+    """The distributed layer's binning on a CUDA tensor is the rank
+    kernel (one launch) and equals the plain version on the CPU."""
+    from radixhashjoin_tpu_torch.ops.radix_partition import partition_by_digit
+    g = torch.Generator(device=dev).manual_seed(n)
+    digit = torch.randint(0, n_bins + 1, (n,), generator=g, device=dev,
+                          dtype=torch.int32)
+    vals = torch.randint(-2**31, 2**31 - 1, (n,), generator=g, device=dev,
+                         dtype=torch.int32)
+    before = kernels.LAUNCHES["rank_hist"]
+    (got,), hist, offs = partition_by_digit(digit, (vals,), n_bins)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["rank_hist"] == before + 1
+    (want,), whist, woffs = partition_by_digit(digit.cpu(), (vals.cpu(),),
+                                               n_bins)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(hist.cpu(), whist) and torch.equal(offs.cpu(), woffs)
+
+
+def test_dist_world_of_one_cuda_matches_oracle(dev):
+    """The DistExecutor in a world of one NCCL rank (this process): the
+    factorized wave and the exchange pipeline (heavy broadcast and
+    all_to_all) answer the oracle's lines, through the rank kernel."""
+    from radixhashjoin_tpu_torch.parallel import multihost
+    from radixhashjoin_tpu_torch.parallel.dist_executor import DistExecutor
+    rng = np.random.default_rng(5)
+    n = 50_000
+    rels = [Relation([rng.integers(0, 3000, n).astype(np.uint64),
+                      rng.integers(0, 1000, n).astype(np.uint64)]),
+            Relation([np.arange(3000, dtype=np.uint64),
+                      rng.integers(0, 1000, 3000).astype(np.uint64)]),
+            Relation([rng.integers(0, 3000, 4000).astype(np.uint64),
+                      rng.integers(0, 1000, 4000).astype(np.uint64)])]
+    queries = [
+        Query([0, 1], [JoinPred(0, 0, 1, 0)], [FilterPred(1, 1, "<", 900)],
+              [Projection(0, 1), Projection(1, 1)]),
+        Query([0, 1, 2], [JoinPred(0, 0, 1, 0), JoinPred(1, 0, 2, 0),
+                          JoinPred(2, 1, 0, 1)], [], [Projection(2, 1)]),
+    ]
+    oracle = OracleExecutor(rels)
+    want = [format_result(oracle.execute(q), len(q.projections))
+            for q in queries]
+    multihost.init_multihost(f"127.0.0.1:{multihost.free_port()}", 1, 0,
+                             device="cuda")
+    try:
+        for cfg in ({}, {"factorized": False},
+                    {"factorized": False, "skew_heavy_fraction": 1.0}):
+            before = kernels.LAUNCHES["rank_hist"]
+            ex = DistExecutor(rels, EngineConfig(mesh_devices=1, **cfg),
+                              n_devices=1)
+            assert ex.run_batch(queries) == want
+            if cfg:
+                assert ex.counters["exchange_queries"] == 2
+                assert kernels.LAUNCHES["rank_hist"] > before
+    finally:
+        multihost.shutdown()

@@ -303,6 +303,13 @@ def test_unported_config_raises(field, value, monkeypatch):
         # of the reference's sorted windows on a huge node
         _huge_agree(monkeypatch, EngineConfig(**{field: value}))
         return
+    if field == "mesh_devices":
+        # ported: a distributed engine needs the world it names, and with
+        # no process group it raises rather than run on one device
+        # (tests/test_torch_dist_engine.py runs it on gloo ranks)
+        with pytest.raises(RuntimeError, match="process group"):
+            _port_engine([_u64([1, 2])], EngineConfig(**{field: value}))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port_engine([_u64([1, 2])], EngineConfig(**{field: value}))
 
