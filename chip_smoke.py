@@ -34,6 +34,17 @@ Phases (any failure raises and exits non-zero; nothing is swallowed):
      a subprocess and in-process, lines equal to the oracle's and to
      `--no-batch`'s; 50 queries in the factorized wave, 20 as
      materialized stage ops, none on the per-query executor;
+  3d. the same 70 queries under every engine setting and CLI flag: the
+     default CLI through the C++ host runtime (runtime/native, its
+     library built at first use and used), --no-native, --oracle,
+     --profile (its per-operator table, shares at most 100%), --backend
+     sort and --reorder-joins as subprocesses started together, then
+     stage_group 1, 8 and 64, ftree_wave=False and defer_middle=False
+     in-process with their dispatches and launches and a sync check;
+     every line equals the oracle's. Then native against Python load and
+     parse seconds (this catalog, and a star of phase 4's shape written
+     to files), and the A/B of warm walls: one round, 64-query rounds
+     and per-query ftree ops, in turns, ten runs each;
   4. data scale through Engine.run_workload: a Zipf(1.1) fact of 2^27
      rows over 2^20 keys joined with a 2^20-row dimension, and a star of
      a 2^24-row fact with two 2^20-row dimensions, each against its
@@ -590,6 +601,289 @@ def phase_fallback_cli(dev):
                         lambda: engine.run_workload(batches))
             print(json.dumps(row))
     return lines["default_cli"]
+
+
+# ---- phase 3d: every engine setting and CLI flag on the same catalog ----
+
+# warm runs of each A/B configuration, in turns (forward, then backward)
+AB_RUNS = 10
+
+# the CLI's entry point with its argv, printing the kernel wrappers'
+# launch counts to stderr when the process ends
+_CLI_WITH_LAUNCHES = (
+    "import atexit, json, sys\n"
+    "from radixhashjoin_tpu_torch import kernels\n"
+    "from radixhashjoin_tpu_torch.__main__ import cli\n"
+    "atexit.register(lambda: print('LAUNCHES ' + json.dumps("
+    "kernels.LAUNCHES), file=sys.stderr))\n"
+    "sys.argv = ['radixhashjoin_tpu_torch'] + sys.argv[1:]\n"
+    "cli()\n")
+
+
+def _profile_table(stderr):
+    """The rows of the --profile table on a CLI's stderr: [(operator,
+    calls, seconds, GB/s, share or None)]."""
+    rows, inside = [], False
+    for ln in stderr.splitlines():
+        if ln.startswith("operator") and "% roof" in ln:
+            inside = True
+            continue
+        if inside and ln.startswith("TOTAL"):
+            return rows
+        if inside:
+            name, calls, sec, gbs, roof = ln.split()
+            rows.append((name, int(calls), float(sec), float(gbs),
+                         None if roof == "-" else float(roof[:-1]) / 100))
+    raise AssertionError(f"no --profile table on stderr:\n{stderr[-2000:]}")
+
+
+def _native_vs_python(paths, text=None):
+    """Load (relations and their stats) and parse (of `text`, if given)
+    seconds through the C++ host runtime and through storage.py /
+    workload.py, in turns (native, Python, native, Python); every
+    relation's columns and stats and every query equal."""
+    import dataclasses
+
+    from radixhashjoin_tpu_torch.runtime import native
+    from radixhashjoin_tpu_torch.storage import load_relation
+    from radixhashjoin_tpu_torch.workload import parse_work_stream
+
+    out = {"native_load_s": [], "python_load_s": [], "native_parse_s": [],
+           "python_parse_s": []}
+    for _ in range(2):
+        t0 = time.perf_counter()
+        nat = [native.load_relation_native(p) for p in paths]
+        out["native_load_s"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        py = [load_relation(p) for p in paths]
+        out["python_load_s"].append(time.perf_counter() - t0)
+        if text is None:
+            continue
+        t0 = time.perf_counter()
+        qn = native.parse_work_native(text)
+        out["native_parse_s"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        qp = parse_work_stream(text.splitlines(True))
+        out["python_parse_s"].append(time.perf_counter() - t0)
+    for a, b in zip(nat, py):
+        if ([dataclasses.astuple(s) for s in a.stats]
+                != [dataclasses.astuple(s) for s in b.stats]
+                or any(not np.array_equal(x, y)
+                       for x, y in zip(a.values, b.values))):
+            raise AssertionError(f"native and Python loads differ: {a.path}")
+
+    if text is None:
+        return {k: v for k, v in out.items() if v}
+
+    def fields(batches):
+        return [[(q.slots, q.joins, q.filters, q.projections) for q in b]
+                for b in batches]
+    if fields(qn) != fields(qp):
+        raise AssertionError("native and Python parses differ")
+    return out
+
+
+def phase_settings_cli(dev):
+    """Phase 3c's 70 queries under every engine setting and CLI flag:
+    the default CLI (the C++ host runtime's loader, parser and formatter,
+    its library built from runtime/native/rhj_host.cpp and used),
+    --no-native, --oracle, --profile, --backend sort and --reorder-joins
+    as subprocesses started together, then in-process stage_group 1, 8
+    and 64, ftree_wave=False and defer_middle=False. Every line equals
+    the port's oracle (the reordered queries' under --reorder-joins);
+    every run but the oracle's and the sort backend's (whose per-op path
+    runs neither) launches the build and lookup kernels. Then native
+    against Python load and parse seconds, on this catalog and on a star
+    of phase 4's shape written to files, and the A/B of warm walls: one
+    round against stage_group=64 and ftree_wave=False, interleaved.
+    Returns the in-process and subprocess runs' launches, summed."""
+    from radixhashjoin_tpu_torch import kernels
+    from radixhashjoin_tpu_torch.config import EngineConfig
+    from radixhashjoin_tpu_torch.models.engine import Engine, main
+    from radixhashjoin_tpu_torch.models.planner import reorder_joins
+    from radixhashjoin_tpu_torch.oracle import run_workload
+    from radixhashjoin_tpu_torch.runtime import native
+    from radixhashjoin_tpu_torch.storage import load_relation, write_relation
+    from radixhashjoin_tpu_torch.workload import parse_work_stream
+
+    rng = np.random.default_rng(2018)            # phase 3's catalog
+    rels = make_contest_catalog(rng)
+    tree = make_tree_queries(rng, rels)
+    total = {k: 0 for k in kernels.LAUNCHES}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches.get(k, 0)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i, cols in enumerate(rels):
+            paths.append(os.path.join(tmp, f"r{i}"))
+            write_relation(paths[-1], cols)
+        loaded = [load_relation(p) for p in paths]
+        planner = Engine(loaded, EngineConfig(), device=dev).batch_executor
+        extra, _kinds = make_fallback_queries(np.random.default_rng(7), rels,
+                                              planner)
+        work = tree + extra[:10] + ["F"] + extra[10:] + ["F"]
+        text = "\n".join(work) + "\n"
+        batches = parse_work_stream(work)
+        want = run_workload(loaded, batches)
+        want_reordered = run_workload(
+            loaded, [[reorder_joins(q, loaded) for q in b] for b in batches])
+        stream = "\n".join(paths + ["Done"]) + "\n" + text
+
+        # the CLI's flags, each a process of its own, started together
+        flag_sets = {"default": [], "no_native": ["--no-native"],
+                     "oracle": ["--oracle"], "profile": ["--profile"],
+                     "backend_sort": ["--backend", "sort"],
+                     "reorder_joins": ["--reorder-joins"]}
+        t0 = time.perf_counter()
+        procs = {name: subprocess.Popen(
+            [sys.executable, "-c", _CLI_WITH_LAUNCHES, "--device", dev.type,
+             *flags], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=REPO)
+            for name, flags in flag_sets.items()}
+        results = {name: p.communicate(stream, timeout=600)
+                   for name, p in procs.items()}
+        cli_s = time.perf_counter() - t0
+        runs = {}
+        for name, (out, err) in results.items():
+            if procs[name].returncode != 0:
+                raise AssertionError(f"CLI {flag_sets[name]} exit "
+                                     f"{procs[name].returncode}:\n"
+                                     f"{err[-4000:]}")
+            expect = want_reordered if name == "reorder_joins" else want
+            if out.splitlines() != expect:
+                raise AssertionError(f"CLI {flag_sets[name]} lines differ "
+                                     f"from the oracle's")
+            tag = [ln for ln in err.splitlines()
+                   if ln.startswith("LAUNCHES ")]
+            launches = json.loads(tag[-1][len("LAUNCHES "):])
+            kernel_run = name not in ("oracle", "backend_sort")
+            if (dev.type == "cuda" and kernel_run
+                    and min(launches[k] for k in WAVE_KERNELS) == 0):
+                raise AssertionError(f"CLI {flag_sets[name]} skipped a "
+                                     f"kernel: {launches}")
+            if name == "oracle" and any(launches.values()):
+                raise AssertionError(f"--oracle launched kernels: "
+                                     f"{launches}")
+            add(launches)
+            runs[name] = {"flags": flag_sets[name], "launches": launches}
+        profile = _profile_table(results["profile"][1])
+        if not profile or any(r[4] is not None and r[4] > 1.0
+                              for r in profile):
+            raise AssertionError(f"--profile shares: {profile}")
+        if dev.type == "cuda" and any(r[4] is None for r in profile):
+            raise AssertionError(f"--profile table without shares on "
+                                 f"{dev}: {profile}")
+        # the default CLI's library: built from runtime/native's source in
+        # this run or an earlier one
+        lib = native.library_path()
+        if not os.path.exists(lib):
+            raise AssertionError(f"the native library {lib} was not built")
+        print(json.dumps({
+            "phase": "settings_cli", "queries": len(want),
+            "lines_equal_oracle": True, "subprocesses_s": cli_s,
+            "native_library": os.path.relpath(lib, REPO),
+            "native_source": os.path.relpath(native.SOURCE, REPO),
+            "runs": runs,
+            "profile_table": [{"operator": r[0], "calls": r[1],
+                               "seconds": r[2], "gb_per_s": r[3],
+                               "roofline_share": r[4]} for r in profile]}))
+
+        # in-process: the default (the library used), then each setting
+        configs = {"default": EngineConfig(),
+                   "stage_group1": EngineConfig(stage_group=1),
+                   "stage_group8": EngineConfig(stage_group=8),
+                   "stage_group64": EngineConfig(stage_group=64),
+                   "no_ftree_wave": EngineConfig(ftree_wave=False),
+                   "no_defer_middle": EngineConfig(defer_middle=False)}
+        rows = {}
+        engines = {}
+        for name, cfg in configs.items():
+            calls = dict(native.CALLS)
+            for k in kernels.LAUNCHES:
+                kernels.LAUNCHES[k] = 0
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            eng = main(io.StringIO(stream), out, cfg, device=dev)
+            first_s = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            if out.getvalue().splitlines() != want:
+                raise AssertionError(f"in-process {name} lines differ from "
+                                     f"the oracle's")
+            used = {k: native.CALLS[k] - calls[k] for k in calls}
+            if used != {"load": len(paths), "parse": 1, "format": 1}:
+                raise AssertionError(f"{name}: native runtime calls {used}")
+            if dev.type == "cuda" and min(launches[k]
+                                          for k in WAVE_KERNELS) == 0:
+                raise AssertionError(f"in-process {name} skipped a kernel: "
+                                     f"{launches}")
+            add(launches)
+            counters = dict(eng.batch_executor.counters)
+            if counters["ftree_queries"] != len(tree) - tree.count("F"):
+                raise AssertionError(f"{name}: counters {counters}")
+            rows[name] = {"first_s": first_s, "launches": launches,
+                          "counters": counters,
+                          "dispatches": counters["dispatches"],
+                          "native_calls": used}
+            engines[name] = eng
+        row = {"phase": "settings_inprocess", "queries": len(want),
+               "lines_equal_oracle": True, "runs": rows}
+        if dev.type == "cuda":
+            # profile=False: no synchronizing call inside a round
+            eng = engines["stage_group8"]
+            row["sync_check_stage_group8"] = _sync_check(
+                eng, lambda: eng.run_workload(batches))
+        print(json.dumps(row))
+
+        # the A/B: warm walls, one round against 64-query rounds and
+        # per-query ftree ops, in turns
+        ab = {"one_round": EngineConfig(stage_group=None),
+              "stage_group64": EngineConfig(stage_group=64),
+              "no_ftree_wave": EngineConfig(ftree_wave=False)}
+        ab_eng = {name: Engine.from_paths(paths, cfg, device=dev)
+                  for name, cfg in ab.items()}
+        for eng in ab_eng.values():
+            if eng.run_workload(batches) != want:
+                raise AssertionError("A/B warm-up differs")
+        walls = {name: [] for name in ab}
+        for r in range(AB_RUNS):
+            order = list(ab_eng.items())
+            for name, eng in (order if r % 2 == 0 else order[::-1]):
+                t0 = time.perf_counter()
+                got = eng.run_workload(batches)
+                walls[name].append(time.perf_counter() - t0)
+                if got != want:
+                    raise AssertionError(f"A/B {name} differs")
+        med = {name: float(np.median(w)) for name, w in walls.items()}
+        iqr = {name: float(np.subtract(*np.percentile(w, [75, 25])))
+               for name, w in walls.items()}
+        print(json.dumps({
+            "phase": "settings_ab", "queries": len(want), "warm_s": walls,
+            "median_s": med, "interquartile_s": iqr,
+            "stage_group64_no_slower": med["stage_group64"]
+            <= med["one_round"]}))
+
+        # native against Python host time: this catalog, then a star of
+        # phase 4's shape (a 2^24-row fact, two 2^20-row dimensions)
+        loads = {"contest": _native_vs_python(paths, text)}
+        srng = np.random.default_rng(24)
+        n, k = STAR_ROWS, DIM_KEYS
+        star = [[srng.integers(0, k, n).astype(np.uint64),
+                 srng.integers(0, k, n).astype(np.uint64),
+                 srng.integers(0, 1000, n).astype(np.uint64)]]
+        star += [[np.arange(k, dtype=np.uint64),
+                  srng.integers(0, 1000, k).astype(np.uint64)]
+                 for _ in range(2)]
+        star_paths = []
+        for i, cols in enumerate(star):
+            star_paths.append(os.path.join(tmp, f"star{i}"))
+            write_relation(star_paths[-1], cols)
+        del star
+        loads["star_2_24"] = _native_vs_python(star_paths)
+        print(json.dumps({"phase": "native_vs_python", **loads}))
+    return total
 
 
 # ---- phase 4: data scale ----
@@ -1388,6 +1682,7 @@ def main() -> int:
     timed, errs = phase_kernels(dev)
     launches = phase_cli(dev)
     default_lines = phase_fallback_cli(dev)
+    launches_settings = phase_settings_cli(dev)
     _lines, dist = phase_scale(dev)
     _lines, launches_huge = phase_huge(dev)
     if min(launches_huge[k] for k in WAVE_KERNELS) == 0:
@@ -1403,9 +1698,10 @@ def main() -> int:
     if min(launches_dist[k] for k in WAVE_KERNELS + ("rank_hist",)) == 0:
         raise AssertionError(f"the distributed phase skipped a kernel: "
                              f"{launches_dist}")
-    # the wave's kernels on every main-path run: the CLI's, the huge
-    # phase's and the distributed phase's first runs
-    launches = {k: launches[k] + launches_huge.get(k, 0) + launches_dist[k]
+    # the wave's kernels on every main-path run: the CLI's, the settings
+    # phase's, the huge phase's and the distributed phase's first runs
+    launches = {k: launches[k] + launches_settings[k]
+                + launches_huge.get(k, 0) + launches_dist[k]
                 for k in launches}
     launches_radix = phase_shootout(dev)
     for pkg in ("jax", "radixhashjoin_tpu"):

@@ -1,11 +1,9 @@
 """Engine configuration of the port (counterpart: radixhashjoin_tpu/config.py).
 
-Field names and defaults are the reference's for everything the port
-reads. Fields whose non-default values need code that is not ported yet
-are kept too, so that a setting carried over from the reference raises
-NotImplementedError at construction instead of being ignored. The
-reference's knobs for layers the port does not have yet (limb chunking,
-the native host runtime) are not fields here.
+Field names and defaults are the reference's for every field its engine
+reads. The reference's knobs
+that its engine never reads (radix bits, exchange slack, dtype policy,
+limb chunking, Pallas interpret mode) are not fields here.
 """
 
 from __future__ import annotations
@@ -62,11 +60,27 @@ class EngineConfig:
     # windows measured 3.0-3.5x slower on the H100 (ROADMAP.md §2).
     ftree_window_sort: str = "auto"
 
-    # --- settings that need unported code (non-defaults raise) ---
+    # the NumPy oracle (oracle.py) answers every query; the device
+    # executors still build, and nothing else routes to the oracle
     force_oracle: bool = False
-    # every factorized query of a round runs in ONE level-batched wave
+    # every factorized query of a round runs in ONE level-batched wave;
+    # False runs each as its own ("ftree", ...) stage op
     ftree_wave: bool = True
-    stage_group: Optional[int] = None
+    # queries per round of the fused batch path (a positive int); None
+    # runs a batch as one round. The reference's 64: on the H100, 64-query
+    # rounds measured no slower than one round on the 70-query CLI
+    # (PERF.md §6)
+    stage_group: Optional[int] = 64
+    # defer a middle join's fresh attach when no later join references
+    # the attached slot: rows never expand (a mult row carries the
+    # multiplicity) and the readback boundary disappears
+    defer_middle: bool = True
+    # load, parse and format through the C++ host runtime
+    # (runtime/native); a failed build raises, False runs the Python
+    # loader and parser
+    use_native_runtime: bool = True
+    # per-operator timing + roofline accounting (utils/profiling.py):
+    # synchronizes after every recorded operator
     profile: bool = False
 
     # --- the distributed layer (parallel/, one process per device) ---
@@ -93,26 +107,25 @@ class EngineConfig:
 
 
 # EngineConfig fields whose non-default values need code that is not
-# ported yet: field -> (allowed values, what it needs)
-_UNPORTED = {
-    "force_oracle": ((False,), "the oracle route (item 13; the port has "
-                               "no quiet route to the oracle)"),
-    "ftree_wave": ((True,), "per-query ftree ops, kept out until an A/B "
-                            "on the H100 decides them (item 11)"),
-    "stage_group": ((None,), "rounds of grouped queries, kept out until "
-                             "an A/B on the H100 decides them (item 11)"),
-    "profile": ((False,), "the per-operator profiler (item 12)"),
-}
+# ported yet: field -> (allowed values, what it needs). Empty: the port
+# runs every setting the reference's engine reads.
+_UNPORTED: dict = {}
 
 
 def check_config(config: EngineConfig) -> None:
-    """Raise NotImplementedError for a config that needs unported code."""
+    """Raise for a config the port cannot run: NotImplementedError for
+    unported code, ValueError for an unknown value."""
     for field, (allowed, needs) in _UNPORTED.items():
         value = getattr(config, field)
         if value not in allowed:
             raise NotImplementedError(
                 f"EngineConfig({field}={value!r}) needs {needs}, which is "
                 f"not ported yet (ROADMAP.md, 'Modules to port')")
+    sg = config.stage_group
+    if sg is not None and (isinstance(sg, bool) or not isinstance(sg, int)
+                           or sg < 1):
+        raise ValueError(f"stage_group must be None or a positive int, "
+                         f"got {sg!r}")
     if config.join_backend not in ("auto", "dense", "sort"):
         raise ValueError(f"unknown join_backend {config.join_backend!r}")
     if config.ftree_window_sort not in ("auto", "on", "off", "mono"):

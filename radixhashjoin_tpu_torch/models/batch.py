@@ -8,11 +8,13 @@ it needs a value:
                       + one stacked readback per residual join wave
 
 Dense backend with fuse_stages=True (the default): each round is ONE
-stage (ops/stage.py). Queries that plan as a factorized join tree
+stage (ops/stage.py); a batch opens in rounds of stage_group queries
+(None: one round). Queries that plan as a factorized join tree
 (`_extract_tree`, `_ftree_caps`, `_plan_ftree`, `_ftree_plan_for`,
 copied from the reference line for line) merge into the round's head
-"ftree_wave" op. Every other query (a cycle the planner cannot rewrite,
-over-cap multiplicities, no joins, factorized=False) runs as
+"ftree_wave" op (with ftree_wave=False each keeps its own "ftree" op).
+Every other query (a cycle the planner cannot rewrite, over-cap
+multiplicities, no joins, factorized=False) runs as
 materialized stage ops in the same round (`_plan_stage`): filters,
 probes and expansions, deferred middle attaches, speculative
 expansions, fused terminal joins. Only the probe of a middle join that
@@ -30,6 +32,8 @@ matrix (row j holds the rowids of the j-th joined slot). Counts stay
 0-d device tensors; sums are int64 (utils/limbs.py), combined on the
 host into exact u64 values. `counters`: dispatches (stage runs),
 readbacks (device-to-host copies), spec retries, factorized queries.
+`profiler` (utils/profiling.py, EngineConfig(profile=True)) times the
+per-op path's operators and each stage, at the reference's record sites.
 There is no route to the oracle, to the per-query executor or to the
 CPU.
 """
@@ -51,6 +55,7 @@ from ..ops.tables import check_impl
 from ..ops.terminal import channel_spec, terminal_join_and_project
 from ..storage import Relation
 from ..utils.limbs import U64_MASK, combine_channels
+from ..utils.profiling import OpProfiler
 from ..workload import Query
 from .device_catalog import DeviceCatalog
 from .planner import _propagate_join, _rough_filter_estimate
@@ -112,12 +117,13 @@ class _QState:
 class BatchExecutor:
     def __init__(self, relations: Sequence[Relation],
                  config: EngineConfig = DEFAULT, *,
-                 device: torch.device,
+                 device: Optional[torch.device] = None,
                  catalog: Optional[DeviceCatalog] = None):
         self.catalog = catalog or DeviceCatalog(relations, config,
                                                 device=device)
         self.config = config
         self.device = self.catalog.device
+        self.profiler = OpProfiler(config.profile)
         self.counters = {"dispatches": 0, "readbacks": 0, "spec_retries": 0,
                          "ftree_queries": 0}
         # query-signature -> planned ftree (or None = doesn't factorize)
@@ -146,11 +152,17 @@ class BatchExecutor:
             if f.slot in pristine:
                 # first filter on the slot: scan the column directly
                 n = cat.relations[q.slots[f.slot]].num_tuples
-                rows, cnt = filter_full(col, n, const, opc, cat.bucket(n))
+                rows, cnt = self.profiler.record(
+                    "filter", filter_full(col, n, const, opc, cat.bucket(n)),
+                    (col,))
                 pristine.discard(f.slot)
             else:
-                rows, cnt = filter_live(st.live_rows[f.slot],
-                                        st.live_cnt[f.slot], col, const, opc)
+                # the column is point-gathered, not scanned
+                rows, cnt = self.profiler.record(
+                    "filter",
+                    filter_live(st.live_rows[f.slot], st.live_cnt[f.slot],
+                                col, const, opc),
+                    (st.live_rows[f.slot],))
             st.live_rows[f.slot], st.live_cnt[f.slot] = rows, cnt
             st.flags.append(cnt == 0)   # device bool; NULL if ever true
         return st
@@ -171,15 +183,20 @@ class BatchExecutor:
             if s1 not in st.slot_row:
                 # fresh slot: creates a singleton intermediate and, like
                 # case 1, wipes any other component
-                rows, cnt = eq_filter_rows(colA, colB, st.live_rows[s1],
-                                           st.live_cnt[s1])
+                rows, cnt = self.profiler.record(
+                    "eq_filter",
+                    eq_filter_rows(colA, colB, st.live_rows[s1],
+                                   st.live_cnt[s1]),
+                    (st.live_rows[s1],))
                 st.mat = rows[None]
                 st.slot_row = {s1: 0}
                 st.icount = cnt
             else:
-                st.mat, st.icount = eq_filter_matrix(
-                    colA, colB, st.mat, st.slot_row[s1], st.slot_row[s2],
-                    st.icount)
+                st.mat, st.icount = self.profiler.record(
+                    "eq_filter",
+                    eq_filter_matrix(colA, colB, st.mat, st.slot_row[s1],
+                                     st.slot_row[s2], st.icount),
+                    (st.mat,))
             return False
 
         j1, j2 = s1 in st.slot_row, s2 in st.slot_row
@@ -188,9 +205,11 @@ class BatchExecutor:
             nonempty = self.join.any_common_matrix(
                 colA, colB, st.mat, st.slot_row[s1], st.slot_row[s2],
                 st.icount)
-            st.mat, st.icount = eq_filter_matrix(
-                colA, colB, st.mat, st.slot_row[s1], st.slot_row[s2],
-                st.icount)
+            st.mat, st.icount = self.profiler.record(
+                "eq_filter",
+                eq_filter_matrix(colA, colB, st.mat, st.slot_row[s1],
+                                 st.slot_row[s2], st.icount),
+                (st.mat,))
             st.flags.append(~nonempty)
             return False
 
@@ -242,9 +261,13 @@ class BatchExecutor:
                     shifts.append(sh)
 
             plan = (ex_kind, full_row, tuple(specs))
-            empty, outs = terminal_join_and_project(
-                ex_source, icount, st.live_rows[fresh], st.live_cnt[fresh],
-                col_full, col_fresh, tuple(cols), plan, domain)
+            empty, outs = self.profiler.record(
+                "terminal",
+                terminal_join_and_project(
+                    ex_source, icount, st.live_rows[fresh],
+                    st.live_cnt[fresh], col_full, col_fresh, tuple(cols),
+                    plan, domain),
+                (ex_source, st.live_rows[fresh]))
             st.flags.append(empty)
             oi = 0
             for npl in plane_n:
@@ -260,10 +283,12 @@ class BatchExecutor:
 
         if not j1 and not j2:
             # case 1: probe between live sets
-            st.probe = self.join.probe_rows(colA, st.live_rows[s1],
-                                            st.live_cnt[s1], colB,
-                                            st.live_rows[s2],
-                                            st.live_cnt[s2])
+            st.probe = self.profiler.record(
+                "probe",
+                self.join.probe_rows(colA, st.live_rows[s1],
+                                     st.live_cnt[s1], colB,
+                                     st.live_rows[s2], st.live_cnt[s2]),
+                (st.live_rows[s1], st.live_rows[s2]))
             st.fresh_slot = None
         else:
             # case 2: probe intermediate (full side) against fresh live set
@@ -271,9 +296,13 @@ class BatchExecutor:
                 full, fresh, col_full, col_fresh = s1, s2, colA, colB
             else:
                 full, fresh, col_full, col_fresh = s2, s1, colB, colA
-            st.probe = self.join.probe_matrix(
-                col_full, st.mat, st.slot_row[full], st.icount, col_fresh,
-                st.live_rows[fresh], st.live_cnt[fresh])
+            st.probe = self.profiler.record(
+                "probe",
+                self.join.probe_matrix(col_full, st.mat, st.slot_row[full],
+                                       st.icount, col_fresh,
+                                       st.live_rows[fresh],
+                                       st.live_cnt[fresh]),
+                (st.mat[0], st.live_rows[fresh]))
             st.fresh_slot = fresh
         return True
 
@@ -290,14 +319,20 @@ class BatchExecutor:
         out_size = self.catalog.bucket(total)
         if st.fresh_slot is None:
             # case 1 discards any other slot's data
-            st.mat = self.join.expand_fresh_pair(
-                order, lo, off, cum, st.live_rows[j.slot1],
-                st.live_rows[j.slot2], out_size)
+            st.mat = self.profiler.record(
+                "expand",
+                self.join.expand_fresh_pair(order, lo, off, cum,
+                                            st.live_rows[j.slot1],
+                                            st.live_rows[j.slot2], out_size),
+                (order, lo))
             st.slot_row = {j.slot1: 0, j.slot2: 1}
         else:
-            st.mat = self.join.expand_attach_fresh(
-                order, lo, off, cum, st.mat, st.live_rows[st.fresh_slot],
-                out_size)
+            st.mat = self.profiler.record(
+                "expand",
+                self.join.expand_attach_fresh(
+                    order, lo, off, cum, st.mat,
+                    st.live_rows[st.fresh_slot], out_size),
+                (order, lo, st.mat))
             st.slot_row[st.fresh_slot] = st.mat.shape[0] - 1
         st.icount = total
         st.probe = None
@@ -312,8 +347,10 @@ class BatchExecutor:
                 st.sums.append([])
                 continue
             st.sums.append([
-                ("limb", gather_partials_matrix(plane, st.mat, row,
-                                                st.icount), sh)
+                ("limb", self.profiler.record(
+                    "aggregate",
+                    gather_partials_matrix(plane, st.mat, row, st.icount),
+                    (st.mat[0],)), sh)
                 for plane, sh in cat.int32_planes(st.q.slots[p.slot], p.col)])
 
     # ---- speculative expansion sizing (models/stats.py estimator) ----
@@ -1011,7 +1048,8 @@ class BatchExecutor:
                 # case 1: defer whichever side no later join references
                 f = (s2 if s2 not in later
                      else (s1 if s1 not in later else None))
-            if f is not None and f not in later:
+            if (self.config.defer_middle and f is not None
+                    and f not in later):
                 if j1 or j2:
                     col_full = colA if j1 else colB
                     col_fr = colB if j1 else colA
@@ -1134,14 +1172,17 @@ class BatchExecutor:
         # factorized queries first (stable): their ops land contiguous at
         # the head of the plan and merge into ONE ftree_wave op. State
         # order within a round is free — each state keeps its own refs.
-        ft, rest = [], []
+        # ftree_wave=False keeps each query's own "ftree" op in place.
+        if self.config.ftree_wave:
+            ft, rest = [], []
+            for st in round_states:
+                if (self._ftree_eligible(st, openings.get(id(st)))
+                        and self._ftree_plan_for(st.q) is not None):
+                    ft.append(st)
+                else:
+                    rest.append(st)
+            round_states = ft + rest
         for st in round_states:
-            if (self._ftree_eligible(st, openings.get(id(st)))
-                    and self._ftree_plan_for(st.q) is not None):
-                ft.append(st)
-            else:
-                rest.append(st)
-        for st in ft + rest:
             slot_off = len(live_in)
             live_in.extend(st.live_rows)
             cnt_in.extend(st.live_cnt)
@@ -1167,11 +1208,19 @@ class BatchExecutor:
             cols.extend(c)
             vals.extend(v)
         if not plan:
+            # no query of the round has an operator (no joins, no
+            # filters): nothing runs, and each projection sums 0 (the
+            # reference leaves these sums unset and prints empty lines,
+            # ROADMAP.md §3)
+            for m in meta:
+                m[0].sums.extend([] for _ in m[0].q.projections)
             return
-        # the head run of ftree ops becomes one wave op: flags and sums
-        # come back in the same per-query order
+        # the head run of ftree ops becomes one wave op (also a run of
+        # one, which the reference leaves as its "ftree" op): flags and
+        # sums come back in the same per-query order
         nft = 0
-        while nft < len(plan) and plan[nft][0] == "ftree":
+        while (self.config.ftree_wave and nft < len(plan)
+               and plan[nft][0] == "ftree"):
             nft += 1
         if nft:
             head = plan[:nft]
@@ -1188,12 +1237,15 @@ class BatchExecutor:
                 keep_mats.append(mi)
                 keep_probes.append(len(keep_probes))
         self.counters["dispatches"] += 1
-        packed, lr_k, lc_k, mats_k, ics_k, probes_k = run_stage(
-            tuple(live_in), tuple(cnt_in), tuple(mats_in), tuple(ic_in),
-            tuple(probes_in), tuple(cols), tuple(vals), tuple(plan),
-            self.catalog.domain, tuple(keep_slots), tuple(keep_mats),
-            tuple(keep_probes), self.config.ftree_scatter,
-            self.config.ftree_gather)
+        packed, lr_k, lc_k, mats_k, ics_k, probes_k = self.profiler.record(
+            "stage",
+            run_stage(tuple(live_in), tuple(cnt_in), tuple(mats_in),
+                      tuple(ic_in), tuple(probes_in), tuple(cols),
+                      tuple(vals), tuple(plan), self.catalog.domain,
+                      tuple(keep_slots), tuple(keep_mats),
+                      tuple(keep_probes), self.config.ftree_scatter,
+                      self.config.ftree_gather),
+            tuple(live_in) + tuple(mats_in))
         vid = len(vecs)
         vecs.append(packed)
         slot_new = dict(zip(keep_slots, zip(lr_k, lc_k)))
@@ -1264,9 +1316,10 @@ class BatchExecutor:
             states.append(st)
         vecs: List[torch.Tensor] = []
         host: Dict[int, list] = {}
-        # the whole batch is one round (stage_group is not ported,
-        # ROADMAP.md item 11)
-        self._run_round(states, {}, vecs)
+        # rounds of stage_group queries (None: the whole batch is one)
+        group = self.config.stage_group or len(states)
+        for i in range(0, len(states), group):
+            self._run_round(states[i:i + group], {}, vecs)
         while True:
             pend = [st for st in states if st.probe is not None
                     and not st.null]
@@ -1289,7 +1342,8 @@ class BatchExecutor:
                     continue
                 openings[id(st)] = (st.pending[0], cat.bucket(total))
                 live.append(st)
-            self._run_round(live, openings, vecs)
+            for i in range(0, len(live), group):
+                self._run_round(live[i:i + group], openings, vecs)
         results = self._final_sweep_fused(states, vecs, host)
         retry = [i for i, r in enumerate(results) if r is _RETRY]
         if retry:

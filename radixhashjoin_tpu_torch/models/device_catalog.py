@@ -56,15 +56,35 @@ _NARROW_PLANE_MIN_ROWS = 1 << 28
 _UPLOAD_DTYPES = (np.int32, np.uint16)
 
 
+def resolve_device(device) -> torch.device:
+    """The device a run asked for; a CUDA device without a card raises
+    (never a silent CPU)."""
+    dev = torch.device(device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA device requested but torch.cuda.is_available() is "
+                "False (run on device 'cpu', --device cpu on the command "
+                "line, for the plain PyTorch versions)")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 class DeviceCatalog:
     def __init__(self, relations: Sequence[Relation],
                  config: EngineConfig = DEFAULT, *,
                  device: Optional[torch.device] = None, mesh=None):
+        """`device` (default: the card, resolve_device("cuda")) holds the
+        columns; with a `mesh`, the mesh's device."""
         self.relations = relations
         self.config = config
         self.mesh = mesh
-        self.device = torch.device(mesh.device if mesh is not None
-                                   else device)
+        self.device = (torch.device(mesh.device) if mesh is not None
+                       else resolve_device("cuda" if device is None
+                                           else device))
         self._cols: Dict[tuple, torch.Tensor] = {}
         self._planes: Dict[tuple, list] = {}
         self._wide_planes: Dict[tuple, list] = {}

@@ -20,6 +20,13 @@ queries in one distributed wave, the rest query by query.
 
 Both paths run each query through `_plan` first: the stats-driven join
 reordering of models/planner.py when enable_join_reordering is set.
+force_oracle=True answers every query with the NumPy oracle (oracle.py)
+instead; the engine takes that route only when asked.
+
+Relations load, and the CLI's work stream parses and its lines format,
+through the C++ host runtime (runtime/native.py) unless
+use_native_runtime=False: then storage.py, workload.py and
+oracle.format_result do it, with the same results.
 """
 
 from __future__ import annotations
@@ -30,11 +37,11 @@ from typing import List, Optional, Sequence, TextIO
 import torch
 
 from ..config import DEFAULT, EngineConfig
-from ..oracle import format_result
+from ..oracle import OracleExecutor, format_result
 from ..storage import Relation, load_relation
 from ..workload import Query, parse_init_stream, parse_work_stream
 from .batch import BatchExecutor
-from .device_catalog import DeviceCatalog
+from .device_catalog import DeviceCatalog, resolve_device
 from .executor import TorchExecutor
 from .planner import reorder_joins
 
@@ -45,12 +52,14 @@ class Engine:
     def __init__(self, relations: Sequence[Relation],
                  config: EngineConfig = DEFAULT, *,
                  device: Optional[torch.device] = None, mesh=None):
-        """`device`: where a single-device engine runs. With
-        config.mesh_devices the engine is this rank's part of a
-        distributed run over `mesh` (default: the initialized world,
-        parallel/mesh.py make_mesh), on the mesh's device."""
+        """`device`: where a single-device engine runs (default: the
+        card, resolve_device("cuda")). With config.mesh_devices the engine
+        is this rank's part of a distributed run over `mesh` (default: the
+        initialized world, parallel/mesh.py make_mesh), on the mesh's
+        device."""
         self.relations = list(relations)
         self.config = config
+        self._oracle = OracleExecutor(self.relations)
         self.dist_executor = None
         if config.mesh_devices:
             from ..parallel.dist_executor import DistExecutor
@@ -60,7 +69,7 @@ class Engine:
             self.device = self.dist_executor.device
             self.batch_executor = self.executor = None
             return
-        self.device = torch.device(device)
+        self.device = resolve_device("cuda" if device is None else device)
         if config.batch_execution:
             self.batch_executor = BatchExecutor(self.relations, config,
                                                 device=self.device)
@@ -76,15 +85,25 @@ class Engine:
                    config: EngineConfig = DEFAULT, *,
                    device: Optional[torch.device] = None,
                    mesh=None) -> "Engine":
-        return cls([load_relation(p) for p in paths], config, device=device,
+        """Load the relations (through the C++ loader unless
+        config.use_native_runtime is False) and build the engine."""
+        if config.use_native_runtime:
+            from ..runtime import load_relation_native as load
+        else:
+            load = load_relation
+        return cls([load(p) for p in paths], config, device=device,
                    mesh=mesh)
 
     def execute(self, q: Query) -> Optional[List[int]]:
         """One query through the per-query executor (or the distributed
-        one): projection sums, or None for a NULL line."""
+        one, or the oracle under force_oracle): projection sums, or None
+        for a NULL line."""
+        q = self._plan(q)
+        if self.config.force_oracle:
+            return self._oracle.execute(q)
         if self.dist_executor is not None:
-            return self.dist_executor.execute(self._plan(q))
-        return self.executor.execute(self._plan(q))
+            return self.dist_executor.execute(q)
+        return self.executor.execute(q)
 
     def _plan(self, q: Query) -> Query:
         """Stats-driven join reordering (models/planner.py); off by
@@ -95,8 +114,10 @@ class Engine:
 
     def run_batch_raw(self, batch: Sequence[Query]
                       ) -> List[Optional[List[int]]]:
-        """One query batch on the device: per-query sums (None = NULL
-        line), unformatted."""
+        """One query batch on the device (on the host's oracle under
+        force_oracle): per-query sums (None = NULL line), unformatted."""
+        if self.config.force_oracle:
+            return [self.execute(q) for q in batch]
         if self.dist_executor is not None and self.config.batch_execution:
             return self.dist_executor.run_batch_raw(
                 [self._plan(q) for q in batch])
@@ -123,30 +144,18 @@ class Engine:
                 for r, q in zip(raw, queries)]
 
 
-def resolve_device(device) -> torch.device:
-    """The device a run asked for; a CUDA device without a card raises
-    (never a silent CPU)."""
-    dev = torch.device(device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA device requested but torch.cuda.is_available() is "
-                "False (run on device 'cpu', --device cpu on the command "
-                "line, for the plain PyTorch versions)")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
 def main(stdin: TextIO = None, stdout: TextIO = None,
          config: EngineConfig = DEFAULT, device="cuda") -> Engine:
     """stdin-protocol entry point, contract-identical to the reference
     binary: relation paths until `Done`, then query batches
     (`F`-terminated), then one result line per query in input order.
+    The work stream parses and the lines format through the C++ host
+    runtime unless config.use_native_runtime is False.
     Returns the engine (its executors' counters describe the run)."""
     dev = resolve_device(device)
+    native = config.use_native_runtime
+    if native:
+        from ..runtime import format_results_native, parse_work_native
     stdin = stdin or sys.stdin
     stdout = stdout or sys.stdout
     paths = parse_init_stream(stdin)
@@ -157,11 +166,17 @@ def main(stdin: TextIO = None, stdout: TextIO = None,
               file=sys.stderr)
         raise SystemExit(1)
     try:
-        batches = parse_work_stream(stdin)
+        batches = (parse_work_native(stdin.read()) if native
+                   else parse_work_stream(stdin))
     except (ValueError, IndexError) as e:
         print(f"radixhashjoin_tpu_torch: malformed work stream: {e}",
               file=sys.stderr)
         raise SystemExit(1)
-    for line in engine.run_workload(batches):
-        stdout.write(line + "\n")
+    if native:
+        raw = engine.run_workload_raw(batches)
+        stdout.write(format_results_native(
+            raw, [len(q.projections) for b in batches for q in b]))
+    else:
+        for line in engine.run_workload(batches):
+            stdout.write(line + "\n")
     return engine

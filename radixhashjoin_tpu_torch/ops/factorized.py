@@ -791,3 +791,12 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto",
                     for f in hits]
             return _finish(hits, torch.stack(sums), mesh)
     return _finish(hits, fold_segments(outs, device), mesh)
+
+
+def run_ftree(spec, cols, vals, scatter="auto", gather="auto"):
+    """Execute one factorized tree: a single-spec wave (counterpart:
+    radixhashjoin_tpu/ops/factorized.py:1331 run_ftree). Returns (flags,
+    sums) as run_ftree_wave does for that one spec: the flag_nodes flags
+    then the M/trailing flag, and one int64 SUM per projection plane."""
+    return run_ftree_wave(((spec, len(cols), len(vals)),), tuple(cols),
+                          tuple(vals), scatter=scatter, gather=gather)

@@ -44,12 +44,14 @@ indexes the probes consumed by expansions):
       deferred-slot projection with no terminal join
   ("project_w", mi, row, mult_rows)      projection weighted by deferred
       multiplicities (pipeline ended on a row-filter join)
+  ("ftree", spec, n_cols, n_vals)        one factorized query
+      (ops/factorized.py run_ftree; EngineConfig(ftree_wave=False))
   ("ftree_wave", wspecs, n_cols, n_vals) every factorized query of the
-      round in one level-batched wave (ops/factorized.py)
+      round in one level-batched wave (ops/factorized.py); its flags and
+      sums arrive in the order the per-query ops would emit them
 
 Column operands arrive in `cols` in plan order; filter constants in
-`vals`. The reference's per-query ("ftree", ...) op is not ported: one
-factorized query is a one-spec wave (ROADMAP.md item 11).
+`vals`.
 
 Differences from the reference, all of representation: the packed
 vector is int64; a multiplicity product (`_mult_of`) and a count times
@@ -68,7 +70,7 @@ from .backend import (_expand_attach, _expand_pair, _probe_matrix_dense,
                       _probe_rows_dense)
 from .chain import eq_filter_matrix, eq_filter_rows
 from .compact import compact, compact_mask_positions
-from .factorized import run_ftree_wave
+from .factorized import run_ftree, run_ftree_wave
 from .filter import filter_full, filter_live, gather_clamped
 from .join_dense import dense_any_common
 from .terminal import (_dense_counts, _fresh_sum_weighted,
@@ -277,6 +279,18 @@ def run_stage(live_rows, live_cnt, mats, icounts, probes, cols, vals, plan,
             partials.append(_gather_partials(cols[ci], mats[mi][row],
                                              ic[mi]))
             ci += 1
+        elif k == "ftree":
+            # one factorized query: its NULL flags, then one int64 SUM
+            # per projection plane
+            _, spec, n_cols, n_vals = op
+            fflags, sums = run_ftree(spec, cols[ci:ci + n_cols],
+                                     vals[vi:vi + n_vals],
+                                     scatter=ftree_scatter,
+                                     gather=ftree_gather)
+            ci += n_cols
+            vi += n_vals
+            flags.extend(fflags)
+            partials.append(sums)
         elif k == "ftree_wave":
             # every factorized query of the round, level-batched; flags
             # and sums arrive in per-query order

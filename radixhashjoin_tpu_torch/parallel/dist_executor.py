@@ -305,19 +305,23 @@ class DistExecutor:
     def run_batch_raw(self, batch: Sequence[Query]
                       ) -> List[Optional[List[int]]]:
         """One batch: every factorizable query in ONE d_ftree wave, the
-        rest through the exchange pipeline one by one. Per-query sums
-        (None = NULL line)."""
+        rest through the exchange pipeline one by one; with
+        ftree_wave=False each factorizable query runs as its own wave, in
+        batch order. Per-query sums (None = NULL line)."""
         results: List[Optional[List[int]]] = [None] * len(batch)
         wave = []
         for i, q in enumerate(batch):
             cached = None
             if self.config.factorized and q.joins:
                 cached = self._planner._ftree_plan_for(q)
-            if cached is not None:
-                self.counters["ftree_queries"] += 1
+            if cached is None:
+                results[i] = self._execute_exchange(q)
+                continue
+            self.counters["ftree_queries"] += 1
+            if self.config.ftree_wave:
                 wave.append((i, q, cached))
             else:
-                results[i] = self._execute_exchange(q)
+                results[i] = self._execute_ftree_wave([(q, cached)])[0]
         if wave:
             sums = self._execute_ftree_wave([(q, c) for _, q, c in wave])
             for (i, _, _), s in zip(wave, sums):

@@ -136,5 +136,9 @@ def test_catalog_uploads_to_named_device_only():
             for r in _narrow(np.random.default_rng(1))]
     cat = DeviceCatalog(rels, EngineConfig(), device="cpu")
     assert cat.col(1, 0).device.type == "cpu"
-    with pytest.raises(TypeError):
-        DeviceCatalog(rels, EngineConfig())   # no implicit device
+    # no device: the card, never a silent CPU
+    if torch.cuda.is_available():
+        assert DeviceCatalog(rels, EngineConfig()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            DeviceCatalog(rels, EngineConfig())

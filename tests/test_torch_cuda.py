@@ -4,7 +4,8 @@ torch.sort(stable=True), the engine on a CUDA device against the port's
 oracle, the per-query executor and the wave-batched materialized
 fallback (terminal joins, the dense pair-set test, deferred attaches,
 every query shape through the batch path) on CUDA against their CPU
-runs. Marked `cuda`; they skip without a card. They import
+runs, the engine settings (stage_group, ftree_wave=False,
+defer_middle=False) against one round, and the profiler's shares. Marked `cuda`; they skip without a card. They import
 nothing of jax or of the JAX package, so they also run where jax is
 absent:
 
@@ -548,6 +549,63 @@ def test_batch_fallback_cuda_matches_cpu(dev, cfg):
     assert got == [format_result(oracle.execute(q), len(q.projections))
                    for q in queries]
     assert eng.executor.counters["queries"] == 0
+
+
+@pytest.mark.parametrize("cfg", [{"stage_group": 8}, {"stage_group": 1},
+                                 {"ftree_wave": False},
+                                 {"defer_middle": False,
+                                  "factorized": False}])
+def test_settings_cuda_match_one_round(dev, cfg):
+    """stage_group, ftree_wave=False and defer_middle=False on the card:
+    the lines of one round, of the CPU and of the oracle, through the
+    build and lookup kernels."""
+    rng = np.random.default_rng(401)
+    rels, _ = _tree_workload(rng)
+    rels, queries = _general_queries(rng, rels, n_queries=20)
+    base = Engine(rels, EngineConfig(stage_group=None),
+                  device=dev).run_batch(queries)
+    before = dict(kernels.LAUNCHES)
+    eng = Engine(rels, EngineConfig(**cfg), device=dev)
+    got = eng.run_batch(queries)
+    assert got == base
+    assert got == Engine(rels, EngineConfig(**cfg),
+                         device="cpu").run_batch(queries)
+    oracle = OracleExecutor(rels)
+    assert got == [format_result(oracle.execute(q), len(q.projections))
+                   for q in queries]
+    assert all(kernels.LAUNCHES[k] > before[k] for k in ("bincount",
+                                                         "gather"))
+    if "stage_group" in cfg:
+        # rounds of k queries (a round of queries without operators
+        # dispatches nothing)
+        assert eng.batch_executor.counters["dispatches"] > 1
+
+
+@pytest.mark.parametrize("cfg", [{}, {"fuse_stages": False}])
+def test_profile_shares_on_cuda(dev, cfg):
+    """profile=True on the card: the oracle's lines, every recorded
+    operator's share of the H100's bandwidth at most 1.0 (none on
+    another card), the report's rows those operators."""
+    from radixhashjoin_tpu_torch.utils.profiling import hbm_bytes_per_s
+    rng = np.random.default_rng(402)
+    rels, _ = _tree_workload(rng)
+    rels, queries = _general_queries(rng, rels, n_queries=16)
+    eng = Engine(rels, EngineConfig(profile=True, **cfg), device=dev)
+    got = eng.run_batch(queries)
+    oracle = OracleExecutor(rels)
+    assert got == [format_result(oracle.execute(q), len(q.projections))
+                   for q in queries]
+    ops = eng.batch_executor.profiler.ops
+    assert ops
+    bw = hbm_bytes_per_s(dev)
+    for name, s in ops.items():
+        assert s.device.type == "cuda" and s.seconds > 0, name
+        if bw is None:
+            assert s.roofline_frac is None
+        else:
+            assert 0 < s.roofline_frac <= 1.0, (name, s)
+    report = eng.batch_executor.profiler.report().splitlines()
+    assert {ln.split()[0] for ln in report[1:-1]} == set(ops)
 
 
 # ---- the huge-node windowed pass: builds into an accumulator, uint16

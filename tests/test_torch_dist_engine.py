@@ -10,9 +10,10 @@ wide values past 2**31, the factorized corners with relations smaller
 than the world (ranks with no live row), composite-key fusion, huge
 shards under shrunken huge-node thresholds, forced small gather and
 exchange capacities (retries), chunked broadcasts equal to unchunked,
-and one wave per batch. All ranks must agree: every branch reads a
-global value. One test holds a few queries, factorized and exchange,
-against JAX's DistExecutor on a 4-device mesh, lines and counters; one
+and one wave per batch (one per factorized query under
+ftree_wave=False). All ranks must agree: every branch reads a
+global value. One test holds a few queries, factorized, exchange and
+ftree_wave=False, against JAX's DistExecutor on a 4-device mesh, lines and counters; one
 runs the CLI with --mesh 2 --device cpu against the single-device port.
 """
 
@@ -195,6 +196,9 @@ def _cases():
     batch.append(Query([0, 1], [JoinPred(0, 0, 1, 0)], [],
                        [Projection(0, 0), Projection(1, 0)]))
     cases["wave_batch"] = _case(rels, batch, mode="batch")
+    # ftree_wave=False: each factorizable query in a wave of its own
+    cases["wave_batch_nowave"] = _case(rels, batch, {"ftree_wave": False},
+                                       mode="batch")
     return cases
 
 
@@ -235,6 +239,9 @@ def test_dist_lines_match_oracle(world, name):
     if name == "wave_batch":
         assert counters["ftree_waves"] == 1
         assert counters["ftree_queries"] >= 1
+    if name == "wave_batch_nowave":
+        assert counters["ftree_waves"] == counters["ftree_queries"] > 1
+        assert res["wave_batch"][0][0] == want
 
 
 def test_dist_broadcast_chunks_match_unchunked(world):
@@ -247,24 +254,29 @@ _JAX_CASES = {
     "ftree": ("composite", {}),
     "exchange": ("zipf_heavy", {"skew_heavy_fraction": 0.25,
                                 "factorized": False}),
+    "ftree_wave_false": ("wave_batch_nowave", {"ftree_wave": False}),
 }
 
 
 @pytest.mark.parametrize("path", list(_JAX_CASES))
 def test_dist_matches_jax_dist_executor(world, path):
     """The port on this world against JAX's DistExecutor on a 4-device
-    mesh: the same lines and the same counters."""
+    mesh: the same lines and the same counters (a batch case through
+    run_batch)."""
     _n, res = world
     name, cfg = _JAX_CASES[path]
-    cols, lines, _cfg, _p, _mode = CASES[name]
+    cols, lines, _cfg, _p, mode = CASES[name]
     rels = [Relation([np.asarray(c, np.uint64) for c in cs]) for cs in cols]
     queries = [parse_query(ln) for ln in lines]
     jax_queries = [Query(q.slots, q.joins, q.filters, q.projections)
                    for q in queries]
     ex = JaxDist(rels, JaxConfig(**cfg), n_devices=4)
     from radixhashjoin_tpu.oracle import format_result
-    want = [format_result(ex.execute(q), len(q.projections))
-            for q in jax_queries]
+    if mode == "batch":
+        want = ex.run_batch(jax_queries)
+    else:
+        want = [format_result(ex.execute(q), len(q.projections))
+                for q in jax_queries]
     got, counters = res[name][0]
     assert got == want
     assert {k: counters[k] for k in JAX_COUNTERS} == {

@@ -11,9 +11,9 @@ case of tests/test_case3_rewrite.py, and wide u64 values with sums past
 2**40 and 2**64. Also: the queries and settings the materialized
 fallback answers inside the batch path (tests/test_torch_batch_fallback.py
 holds its operators and configs against JAX), the CLI as a subprocess,
-the port's independence from jax, and the NotImplementedError surface of
-what is still unported (the per-query path has its own file,
-tests/test_torch_executor.py).
+the port's independence from jax, and the settings that raised until
+they were ported (tests/test_torch_settings.py covers those in full; the
+per-query path has its own file, tests/test_torch_executor.py).
 """
 
 import inspect
@@ -28,6 +28,7 @@ import torch
 import test_case3_rewrite as case3
 from radixhashjoin_tpu.config import EngineConfig as JaxConfig
 from radixhashjoin_tpu.models.batch import BatchExecutor as JaxBatch
+from radixhashjoin_tpu.models.engine import Engine as JaxEngine
 from radixhashjoin_tpu.oracle import OracleExecutor, format_result
 from radixhashjoin_tpu.storage import Relation
 from radixhashjoin_tpu.workload import (FilterPred, JoinPred, Projection,
@@ -298,6 +299,10 @@ def test_huge_node_raises(monkeypatch):
     ("ftree_gather", "xla"), ("ftree_wave", False), ("stage_group", 3),
 ])
 def test_unported_config_raises(field, value, monkeypatch):
+    """Settings that raised until they were ported now run, and give the
+    JAX package's lines under the same setting and the oracle's (the name
+    is from when they raised); the table kernels the port does not have
+    still raise."""
     if field == "ftree_window_sort":
         # accepted: the port's one unsorted window pass gives the lines
         # of the reference's sorted windows on a huge node
@@ -310,8 +315,28 @@ def test_unported_config_raises(field, value, monkeypatch):
         with pytest.raises(RuntimeError, match="process group"):
             _port_engine([_u64([1, 2])], EngineConfig(**{field: value}))
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_engine([_u64([1, 2])], EngineConfig(**{field: value}))
+    if field in ("ftree_scatter", "ftree_gather"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            _port_engine([_u64([1, 2])], EngineConfig(**{field: value}))
+        return
+    # ported (tests/test_torch_settings.py covers each setting in full):
+    # the JAX engine under the same setting, the Pallas one-hot build
+    rels, queries = _merge(_shapes() + [_fuzz(0)])
+    prels, pqueries = _to_port(rels, queries)
+    eng = Engine(prels, EngineConfig(**{field: value}), device="cpu")
+    got = eng.run_batch(pqueries)
+    ref = JaxEngine(rels, JaxConfig(ftree_scatter="onehot",
+                                    **{field: value}))
+    oracle = OracleExecutor(rels)
+    want = [format_result(oracle.execute(q), len(q.projections))
+            for q in queries]
+    assert got == want
+    assert ref.run_batch(queries) == want
+    if field == "force_oracle":
+        assert eng.batch_executor.counters["dispatches"] == 0
+    else:
+        assert (eng.batch_executor.counters
+                == ref.batch_executor.counters)
 
 
 @pytest.mark.parametrize("field,value", [
@@ -406,6 +431,8 @@ def test_port_never_imports_jax():
         "import radixhashjoin_tpu_torch.bench_kernels\n"
         "import radixhashjoin_tpu_torch.ops.partition\n"
         "import radixhashjoin_tpu_torch.ops.radix_hist\n"
+        "import radixhashjoin_tpu_torch.runtime, radixhashjoin_tpu_torch."
+        "utils\n"
         "assert 'jax' not in sys.modules\n"
         "assert 'radixhashjoin_tpu' not in sys.modules\n"
         "print('ok')\n")

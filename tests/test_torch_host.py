@@ -1,7 +1,8 @@
 """The port's host modules (radixhashjoin_tpu_torch: config, storage,
-workload, oracle) against their counterparts in the JAX package, on the
-same files, streams and queries: equal values, stats, parsed queries and
-result lines (exact, tolerance 0).
+workload, oracle, utils.primes, utils.profiling) against their
+counterparts in the JAX package, on the same files, streams, queries,
+numbers and operator stats: equal values, stats, parsed queries, result
+lines, primes and report tables (exact, tolerance 0).
 """
 
 import dataclasses
@@ -14,10 +15,14 @@ from radixhashjoin_tpu import config as jconfig
 from radixhashjoin_tpu import oracle as joracle
 from radixhashjoin_tpu import storage as jstorage
 from radixhashjoin_tpu import workload as jworkload
+from radixhashjoin_tpu.utils import primes as jprimes
+from radixhashjoin_tpu.utils import profiling as jprofiling
 from radixhashjoin_tpu_torch import config as tconfig
 from radixhashjoin_tpu_torch import oracle as toracle
 from radixhashjoin_tpu_torch import storage as tstorage
+from radixhashjoin_tpu_torch import utils as tutils
 from radixhashjoin_tpu_torch import workload as tworkload
+from radixhashjoin_tpu_torch.utils import profiling as tprofiling
 
 from test_factorized import _rels
 
@@ -152,10 +157,72 @@ def test_relation_stats_by_bincount_match_reference(case):
 
 
 def test_config_defaults_match_reference():
-    """Every field the port keeps has the reference's default, except
-    stage_group (the port runs a batch as one round)."""
+    """Every field the port keeps has the reference's default (stage_group
+    64 too, by the card's A/B of 64-query rounds against one round);
+    every field the reference's engine reads is kept."""
     ours = dataclasses.asdict(tconfig.EngineConfig())
     ref = dataclasses.asdict(jconfig.EngineConfig())
     assert set(ours) <= set(ref)
-    assert {k: v for k, v in ours.items() if v != ref[k]} == {
-        "stage_group": None}
+    assert {k: v for k, v in ours.items() if v != ref[k]} == {}
+    read = {"force_oracle", "batch_execution", "fuse_stages", "stage_group",
+            "defer_middle", "speculate_expansions", "speculate_slack",
+            "speculate_max", "factorized", "ftree_wave",
+            "use_native_runtime", "profile", "skew_heavy_fraction",
+            "exchange_chunks", "gather_chunks", "broadcast_chunks",
+            "gather_capacity", "ftree_scatter", "ftree_gather",
+            "ftree_window_sort", "enable_join_reordering", "join_backend",
+            "max_dense_domain", "mesh_devices", "min_pad", "pad_base"}
+    assert read <= set(ours)
+    assert tconfig._UNPORTED == {}
+
+
+def test_primes_match_reference():
+    ns = list(range(-3, 2000)) + [2**31 - 1, 2**31, 10**9 + 7, 10**12 + 39]
+    for name in ("is_prime", "next_prime", "next_pow2"):
+        assert ([getattr(tutils, name)(n) for n in ns]
+                == [getattr(jprimes, name)(n) for n in ns]), name
+    assert [tutils.pow2(k) for k in range(70)] == [
+        jprimes.pow2(k) for k in range(70)]
+
+
+def test_profiler_disabled_is_a_no_op():
+    prof = tprofiling.OpProfiler()
+    x = torch.arange(10)
+    out = (x, [x])
+    assert prof.record("op", out, (x,)) is out
+    assert not prof.ops
+    assert prof.report() == "(no ops recorded)"
+
+
+def test_profiler_counts_bytes_and_no_cpu_roofline():
+    """Bytes are the inputs' plus every output tensor's (tuples and lists
+    walked); a CPU op has no roofline, and neither has the CPU device."""
+    prof = tprofiling.OpProfiler(True)
+    a = torch.zeros(100, dtype=torch.int32)
+    b = torch.zeros(7, dtype=torch.int64)
+    result = (a, [b, (a[:10],)], 3, None)
+    assert prof.record("op", result, (a, b)) is result
+    prof.record("op", b)
+    s = prof.ops["op"]
+    assert s.calls == 2
+    assert s.bytes == (400 + 56) + (400 + 56 + 40) + 56
+    assert tprofiling.arr_bytes(a, [b, (b,)], 5) == 400 + 112
+    assert s.device == torch.device("cpu")
+    assert s.roofline_frac is None
+    assert tprofiling.hbm_bytes_per_s(torch.device("cpu")) is None
+    prof.reset()
+    assert not prof.ops
+
+
+def test_profiler_report_matches_reference():
+    """The same stats render the reference's table, line for line (no
+    roofline column on the CPU in either)."""
+    stats = {"stage": (3, 0.25, 10**9), "filter": (12, 0.0123, 5 * 10**6),
+             "probe": (1, 0.0, 0)}
+    tp, jp = tprofiling.OpProfiler(True), jprofiling.OpProfiler(True)
+    for name, (calls, sec, nbytes) in stats.items():
+        tp.ops[name] = tprofiling.OpStats(calls, sec, nbytes,
+                                          torch.device("cpu"))
+        jp.ops[name] = jprofiling.OpStats(calls, sec, nbytes)
+    assert tp.report() == jp.report()
+    assert tp.ops["stage"].gb_per_s == jp.ops["stage"].gb_per_s == 4.0
