@@ -21,10 +21,11 @@ Phases (any failure raises and exits non-zero; nothing is swallowed):
      torch.sort(stable=True), with every device op of a profiled call;
   3. the CLI on a synthetic catalog shaped like the contest's `small`
      set (14 relations, ~270K uint64 tuples, 50 tree-shaped queries in
-     5 batches): once as a subprocess, once in-process through
-     models/engine.main; both must print the lines of the port's NumPy
-     oracle (oracle.py), and the in-process run must go through the
-     build and lookup kernels;
+     5 batches; the generators of radixhashjoin_tpu_torch/bench.py, which
+     phases 3b-3d and 4c use too): once as a subprocess, once in-process
+     through models/engine.main; both must print the lines of the port's
+     NumPy oracle (oracle.py), and the in-process run must go through
+     the build and lookup kernels;
   3b. the same catalog through `--no-batch` (the per-query executor):
      the 50 tree queries plus 20 queries the factorized wave does not
      plan (cycles, same-slot predicates, no joins), in two batches, as a
@@ -48,7 +49,8 @@ Phases (any failure raises and exits non-zero; nothing is swallowed):
   4. data scale through Engine.run_workload: a Zipf(1.1) fact of 2^27
      rows over 2^20 keys joined with a 2^20-row dimension, and a star of
      a 2^24-row fact with two 2^20-row dimensions, each against its
-     closed-form NumPy oracle; the star again through the per-query
+     closed-form NumPy oracle (data and oracle from bench_scale's
+     zipf_join and star); the star again through the per-query
      executor and through the batch path's materialized fallback (the
      dense fused stage with factorized=False, and the sort backend's
      per-op path), and a cyclic triangle of 2^20-row relations
@@ -62,12 +64,13 @@ Phases (any failure raises and exits non-zero; nothing is swallowed):
      (ops/factorized.py _fused_node_pass), through Engine.run_workload:
      the Zipf join at 2^29 + 12345 fact rows and the star of
      scripts/bench_scale.py:315-349 (Zipf key 1, uniform key 2) at
-     2^29 + 4099, each loaded through storage.Relation (its load-time
-     stats included in the set-up time) and held against its closed-form
-     oracle: first run and three warm walls, tuples/s, peak memory,
-     launches (the build and lookup at least once a window), the sync
-     check, the top device ops, and the warm wall against the bound of
-     the bytes the window pass reads (6 and 10 B a fact row over
+     2^29 + 4099 (bench_scale's zipf_join and star_big), each loaded
+     through storage.Relation (its load-time stats and the oracle included
+     in the set-up time) and held against its closed-form oracle: first
+     run and three warm walls, tuples/s, peak memory, launches (the
+     build and lookup at least once a window), the sync check, the top
+     device ops, and the warm wall against the bound of the bytes the
+     window pass reads (6 and 10 B a fact row over
      3.35 TB/s);
   4c. the distributed layer (radixhashjoin_tpu_torch/parallel/) in a
      world of one NCCL rank, this process, on phase 4's relations: the
@@ -83,8 +86,26 @@ Phases (any failure raises and exits non-zero; nothing is swallowed):
      through two gloo ranks sharing the card;
   5. the kernel shootout, `bench_kernels --log-rows 26`, in-process:
      its lines, and the launches of its run (the radix histogram's only
-     path; the rank kernel's launches in the kernels line are phase
-     4c's).
+     path; the rank kernel's launches in the kernels line are phases 4c
+     and 6's);
+  6. the port's bench entry points, each through its main(argv, out) as
+     a user runs it, every line exact: bench_scale (the three dense
+     probes at 2^26 rows a side, the star and the small-dimension star at
+     2^24 fact rows, the Zipf join and the big star at 2^24, the
+     skew-aware distributed join at 2^24 rows in a world of one NCCL
+     rank); the two-deep chain fact1 ⋈ fact2 ⋈ dim at 2^28 + 4097 rows a
+     fact, both facts huge nodes, measured as phase 4b's cells (launches
+     of its first run, peak memory, no synchronizing call inside its
+     round) with bench_scale's metric line; the 70-query bench twin
+     (bench.py); bench_planner at 2^18 / 2^14 and 2^20 / 2^16 rows /
+     distinct keys; bench_microops. Each run's launches are counted from
+     0 (a bench_scale config's exactness run, the chain's first run, the
+     twin's cold pass, the planner's first run of each order) and join
+     the kernels line; each dense probe, engine config, the chain and the
+     twin must launch the build and lookup, the skew join the rank
+     kernel. The planner's per-query path joins with the sort probe and
+     launches none; the timed calls and bench_microops' timing loops are
+     not counted.
 
 Prints the kernels' JSON summary, the card's name and power limit, then
 as its last line {"ok": true, "device": {...}}. Without a CUDA card it
@@ -117,6 +138,13 @@ SHOOTOUT_LOG_ROWS = 26
 # phase 4b: past the 2^28-row huge-node threshold, ragged tails
 HUGE_ZIPF_ROWS = (1 << 29) + 12345
 HUGE_STAR_ROWS = (1 << 29) + 4099
+# phase 6: the port's bench entry points; the two-deep chain with both
+# facts past the 2^28-row threshold (exactly 2^28 would not be past it)
+BENCH_SCALE_ARGV = ["--rows", "26", "--skew", "--skew-rows", str(1 << 24),
+                    "--devices", "1", "--zipf-engine", "--zipf-rows", "24",
+                    "--star-rows", "24"]
+CHAIN_ROWS = (1 << 28) + 4097
+PLANNER_ARGVS = ([], ["--log-rows", "20", "--log-distinct", "16"])
 
 # the factorized wave's kernels; the radix kernels run on the shootout
 WAVE_KERNELS = ("bincount", "gather")
@@ -323,67 +351,18 @@ def _phase_radix_kernels(dev, gen, errs):
 
 # ---- phase 3: the CLI on a contest-shaped synthetic catalog ----
 
-def make_contest_catalog(rng, n_rel=14, total=270_000):
-    """14 uint64 relations, ~270K tuples in all: column 0 a dense id,
-    further columns foreign keys into a shared 2^15 domain or payload
-    values below 2^20 (the contest's value ranges)."""
-    sizes = rng.dirichlet(np.full(n_rel, 2.0)) * total
-    rels = []
-    for n in np.maximum(sizes.astype(np.int64), 50):
-        cols = [rng.permutation(n).astype(np.uint64)]
-        for _ in range(int(rng.integers(1, 5))):
-            hi = int(rng.choice([1 << 15, 1 << 20]))
-            cols.append(rng.integers(0, hi, n).astype(np.uint64))
-        rels.append(cols)
-    return rels
-
-
-def make_tree_queries(rng, rels, n_queries=50, batch=10):
-    """Tree-shaped queries (every join attaches a fresh slot, 1-3 joins),
-    1-2 filters, 1-3 projections, batches of `batch` ended by F."""
-    lines = []
-    for qi in range(n_queries):
-        nslots = int(rng.integers(2, 5))
-        slots = [int(rng.integers(0, len(rels))) for _ in range(nslots)]
-        ncols = [len(rels[s]) for s in slots]
-        preds = []
-        for s in range(1, nslots):
-            p = int(rng.integers(0, s))
-            preds.append(f"{p}.{int(rng.integers(0, ncols[p]))}="
-                         f"{s}.{int(rng.integers(0, ncols[s]))}")
-        for _ in range(int(rng.integers(1, 3))):
-            s = int(rng.integers(0, nslots))
-            c = int(rng.integers(0, ncols[s]))
-            col = rels[slots[s]][c]
-            op = str(rng.choice(["<", ">", "="], p=[0.45, 0.45, 0.1]))
-            k = int(col[int(rng.integers(0, len(col)))])
-            preds.append(f"{s}.{c}{op}{k}")
-        projs = [f"{int(s)}.{int(rng.integers(0, ncols[s]))}"
-                 for s in rng.integers(0, nslots, int(rng.integers(1, 4)))]
-        lines.append(f"{' '.join(map(str, slots))}|{'&'.join(preds)}|"
-                     f"{' '.join(projs)}")
-        if qi % batch == batch - 1:
-            lines.append("F")
-    return lines
-
-
 def phase_cli(dev):
-    import torch
     from radixhashjoin_tpu_torch import kernels
+    from radixhashjoin_tpu_torch.bench import contest_catalog
     from radixhashjoin_tpu_torch.config import EngineConfig
     from radixhashjoin_tpu_torch.models.engine import main
     from radixhashjoin_tpu_torch.oracle import run_workload
-    from radixhashjoin_tpu_torch.storage import load_relation, write_relation
+    from radixhashjoin_tpu_torch.storage import load_relation
     from radixhashjoin_tpu_torch.workload import parse_work_stream
 
-    rng = np.random.default_rng(2018)
-    rels = make_contest_catalog(rng)
-    work = make_tree_queries(rng, rels)
+    rels, work = contest_catalog()
     with tempfile.TemporaryDirectory() as tmp:
-        paths = []
-        for i, cols in enumerate(rels):
-            paths.append(os.path.join(tmp, f"r{i}"))
-            write_relation(paths[-1], cols)
+        paths = _write_catalog(tmp, rels)
         stream = "\n".join(paths + ["Done"] + work) + "\n"
         t0 = time.perf_counter()
         loaded = [load_relation(p) for p in paths]
@@ -435,60 +414,34 @@ def phase_cli(dev):
     return launches
 
 
+def _write_catalog(tmp, rels):
+    """Each relation's columns written to tmp/r<i>; the paths."""
+    from radixhashjoin_tpu_torch.storage import write_relation
+    paths = []
+    for i, cols in enumerate(rels):
+        paths.append(os.path.join(tmp, f"r{i}"))
+        write_relation(paths[-1], cols)
+    return paths
+
+
+def _contest_files(tmp, dev):
+    """Phase 3c's workload over phase 3's catalog written under tmp:
+    (paths, the relations loaded back, the 50 tree queries' lines, the
+    70-query work stream, the fallback queries' kinds); the fallback
+    queries are those the default engine's tree planner leaves out."""
+    from radixhashjoin_tpu_torch import bench
+    from radixhashjoin_tpu_torch.config import EngineConfig
+    from radixhashjoin_tpu_torch.models.engine import Engine
+    from radixhashjoin_tpu_torch.storage import load_relation
+    rels, tree = bench.contest_catalog()
+    paths = _write_catalog(tmp, rels)
+    loaded = [load_relation(p) for p in paths]
+    planner = Engine(loaded, EngineConfig(), device=dev).batch_executor
+    extra, kinds = bench.fallback_queries(rels, planner)
+    return paths, loaded, tree, bench.contest_work(tree, extra), kinds
+
+
 # ---- phase 3b: the per-query path (--no-batch) on the same catalog ----
-
-def make_fallback_queries(rng, rels, batch_executor, n_queries=20):
-    """Queries the factorized wave does not plan, in turn: cycles over
-    three relations, same-slot predicates without cross joins, and
-    filter-only queries. Each is kept only if the batch executor's tree
-    planner leaves it to the materialized fallback (no joins, or no
-    factorized plan)."""
-    from radixhashjoin_tpu_torch.workload import parse_query
-
-    def col_of(slots, s):
-        return int(rng.integers(0, len(rels[slots[s]])))
-
-    def filt(slots):
-        s = int(rng.integers(0, len(slots)))
-        c = col_of(slots, s)
-        col = rels[slots[s]][c]
-        op = str(rng.choice(["<", ">", "="], p=[0.45, 0.45, 0.1]))
-        return f"{s}.{c}{op}{int(col[int(rng.integers(0, len(col)))])}"
-
-    def projs(slots):
-        return " ".join(f"{int(s)}.{col_of(slots, int(s))}" for s in
-                        rng.integers(0, len(slots), int(rng.integers(1, 4))))
-
-    lines, kinds, tries = [], [], 0
-    while len(lines) < n_queries:
-        tries += 1
-        if tries > 50 * n_queries:
-            raise AssertionError("could not generate fallback queries")
-        kind = ("cycle", "same_slot", "no_join")[len(lines) % 3]
-        if kind == "cycle":
-            slots = [int(x) for x in rng.choice(len(rels), 3, replace=False)]
-            preds = [f"0.{col_of(slots, 0)}=1.{col_of(slots, 1)}",
-                     f"1.{col_of(slots, 1)}=2.{col_of(slots, 2)}",
-                     f"2.{col_of(slots, 2)}=0.{col_of(slots, 0)}"]
-        elif kind == "same_slot":
-            slots = [int(x) for x in rng.integers(0, len(rels),
-                                                  int(rng.integers(1, 3)))]
-            a, b = rng.choice(len(rels[slots[0]]), 2, replace=False)
-            preds = [f"0.{int(a)}=0.{int(b)}"]
-        else:
-            slots = [int(x) for x in rng.integers(0, len(rels),
-                                                  int(rng.integers(1, 3)))]
-            preds = []
-        preds += [filt(slots) for _ in range(int(rng.integers(
-            0 if preds else 1, 3)))]
-        line = f"{' '.join(map(str, slots))}|{'&'.join(preds)}|" \
-               f"{projs(slots)}"
-        q = parse_query(line)
-        if not q.joins or batch_executor._ftree_plan_for(q) is None:
-            lines.append(line)
-            kinds.append(kind)
-    return lines, kinds
-
 
 def phase_fallback_cli(dev):
     """The contest-shaped catalog's 50 tree queries plus 20 queries the
@@ -502,22 +455,11 @@ def phase_fallback_cli(dev):
     from radixhashjoin_tpu_torch.config import EngineConfig
     from radixhashjoin_tpu_torch.models.engine import Engine, main
     from radixhashjoin_tpu_torch.oracle import run_workload
-    from radixhashjoin_tpu_torch.storage import load_relation, write_relation
     from radixhashjoin_tpu_torch.workload import parse_work_stream
 
-    rng = np.random.default_rng(2018)            # phase 3's catalog
-    rels = make_contest_catalog(rng)
-    tree = make_tree_queries(rng, rels)
     with tempfile.TemporaryDirectory() as tmp:
-        paths = []
-        for i, cols in enumerate(rels):
-            paths.append(os.path.join(tmp, f"r{i}"))
-            write_relation(paths[-1], cols)
-        loaded = [load_relation(p) for p in paths]
+        paths, loaded, tree, work, kinds = _contest_files(tmp, dev)
         batch_engine = Engine(loaded, EngineConfig(), device=dev)
-        extra, kinds = make_fallback_queries(np.random.default_rng(7), rels,
-                                             batch_engine.batch_executor)
-        work = tree + extra[:10] + ["F"] + extra[10:] + ["F"]
         batches = parse_work_stream(work)
         t0 = time.perf_counter()
         want = run_workload(loaded, batches)
@@ -703,12 +645,9 @@ def phase_settings_cli(dev):
     from radixhashjoin_tpu_torch.models.planner import reorder_joins
     from radixhashjoin_tpu_torch.oracle import run_workload
     from radixhashjoin_tpu_torch.runtime import native
-    from radixhashjoin_tpu_torch.storage import load_relation, write_relation
+    from radixhashjoin_tpu_torch.storage import write_relation
     from radixhashjoin_tpu_torch.workload import parse_work_stream
 
-    rng = np.random.default_rng(2018)            # phase 3's catalog
-    rels = make_contest_catalog(rng)
-    tree = make_tree_queries(rng, rels)
     total = {k: 0 for k in kernels.LAUNCHES}
 
     def add(launches):
@@ -716,15 +655,7 @@ def phase_settings_cli(dev):
             total[k] += launches.get(k, 0)
 
     with tempfile.TemporaryDirectory() as tmp:
-        paths = []
-        for i, cols in enumerate(rels):
-            paths.append(os.path.join(tmp, f"r{i}"))
-            write_relation(paths[-1], cols)
-        loaded = [load_relation(p) for p in paths]
-        planner = Engine(loaded, EngineConfig(), device=dev).batch_executor
-        extra, _kinds = make_fallback_queries(np.random.default_rng(7), rels,
-                                              planner)
-        work = tree + extra[:10] + ["F"] + extra[10:] + ["F"]
+        paths, loaded, tree, work, _kinds = _contest_files(tmp, dev)
         text = "\n".join(work) + "\n"
         batches = parse_work_stream(work)
         want = run_workload(loaded, batches)
@@ -993,9 +924,9 @@ def phase_scale(dev, zipf_rows=ZIPF_ROWS, star_rows=STAR_ROWS,
                 n_keys=DIM_KEYS, triangle_rows=TRIANGLE_ROWS):
     """Phase 4, with phase 4c's distributed cells on its relations.
     Returns (lines, [(distributed line, its first run's launches)])."""
-    from radixhashjoin_tpu_torch.storage import Relation
-    from radixhashjoin_tpu_torch.workload import (FilterPred, JoinPred,
-                                                  Projection, Query)
+    from radixhashjoin_tpu_torch import bench_scale
+    from radixhashjoin_tpu_torch.bench_scale import free_memory
+    from radixhashjoin_tpu_torch.config import EngineConfig
     rng = np.random.default_rng(0)
     dist = []
     print(json.dumps({"phase": "scale", "note": (
@@ -1004,31 +935,17 @@ def phase_scale(dev, zipf_rows=ZIPF_ROWS, star_rows=STAR_ROWS,
         f"(scripts/bench_scale.py's size)")}))
     lines = []
 
-    # BASELINE config 4 (scripts/bench_scale.py:253-279)
+    # BASELINE config 4 (bench_scale.zipf_join; load_s includes the oracle)
     t0 = time.perf_counter()
-    u = rng.random(zipf_rows) + 1e-12
-    zk = np.minimum(u ** (-1.0 / 0.1), n_keys - 1).astype(np.uint64)
-    del u
-    fact = Relation([zk, rng.integers(0, 1000, zipf_rows).astype(np.uint64)])
-    dim = Relation([np.arange(n_keys, dtype=np.uint64),
-                    rng.integers(0, 1000, n_keys).astype(np.uint64)])
+    zipf = bench_scale.zipf_join(zipf_rows, rng, n_keys)
     load_s = time.perf_counter() - t0
-    q = Query([0, 1], [JoinPred(0, 0, 1, 0)], [FilterPred(1, 1, "<", 900)],
-              [Projection(0, 1), Projection(1, 1)])
-    keep = dim.values[1] < 900
-    wk = keep[zk.astype(np.int64)]
-    exp0 = int(fact.values[1][wk].sum(dtype=np.uint64))
-    cnt = np.bincount(zk[wk].astype(np.int64),
-                      minlength=n_keys).astype(np.uint64)
-    exp1 = int((dim.values[1] * cnt * keep).sum(dtype=np.uint64))
-    line = _scale_run("zipf", [fact, dim], q, [f"{exp0} {exp1}"],
+    line = _scale_run("zipf", zipf.rels, zipf.query, zipf.expected,
                       zipf_rows + n_keys, dev)
     line["load_s"] = load_s
     lines.append(line)
     print(json.dumps(line))
     # phase 4c on the same relations: the distributed layer, a world of
     # one (the wave, the heavy broadcast, the all_to_all exchange)
-    from radixhashjoin_tpu_torch.config import EngineConfig
     for cell, cfg in (
             ("dist_zipf_ftree", EngineConfig(mesh_devices=1)),
             ("dist_zipf_heavy", EngineConfig(mesh_devices=1,
@@ -1036,64 +953,40 @@ def phase_scale(dev, zipf_rows=ZIPF_ROWS, star_rows=STAR_ROWS,
             ("dist_zipf_exchange", EngineConfig(mesh_devices=1,
                                                 factorized=False,
                                                 skew_heavy_fraction=1.0))):
-        dist.append(_dist_run(cell, [fact, dim], q, [f"{exp0} {exp1}"],
+        dist.append(_dist_run(cell, zipf.rels, zipf.query, zipf.expected,
                               zipf_rows + n_keys, dev, cfg))
-        _free(dev)
-    del fact, dim, zk, wk
+        free_memory(dev)
+    del zipf
 
-    # star (scripts/bench_scale.py:195-218): fact JOIN dim1 JOIN dim2
+    # star (bench_scale.star): fact JOIN dim1 JOIN dim2
     t0 = time.perf_counter()
-    k1 = rng.integers(0, n_keys, star_rows).astype(np.uint64)
-    k2 = rng.integers(0, n_keys, star_rows).astype(np.uint64)
-    fact = Relation([k1, k2,
-                     rng.integers(0, 1000, star_rows).astype(np.uint64)])
-    dims = [Relation([np.arange(n_keys, dtype=np.uint64),
-                      rng.integers(0, 1000, n_keys).astype(np.uint64)])
-            for _ in range(2)]
+    star = bench_scale.star(star_rows, rng, n_keys)
     load_s = time.perf_counter() - t0
-    q = Query([0, 1, 2], [JoinPred(0, 0, 1, 0), JoinPred(0, 1, 2, 0)],
-              [FilterPred(1, 1, "<", 900)],
-              [Projection(0, 2), Projection(1, 1), Projection(2, 1)])
-    # unique dim keys: fact row r joins exactly one row of each dim, and
-    # participates iff dim1's row passes the filter
-    live = dims[0].values[1][k1.astype(np.int64)] < 900
-    exp = [int(fact.values[2][live].sum(dtype=np.uint64)),
-           int(dims[0].values[1][k1[live].astype(np.int64)]
-               .sum(dtype=np.uint64)),
-           int(dims[1].values[1][k2[live].astype(np.int64)]
-               .sum(dtype=np.uint64))]
-    line = _scale_run("star", [fact] + dims, q, [" ".join(map(str, exp))],
-                      star_rows + 2 * n_keys, dev)
+    args = (star.rels, star.query, star.expected, star_rows + 2 * n_keys, dev)
+    line = _scale_run("star", *args)
     line["load_s"] = load_s
     lines.append(line)
     print(json.dumps(line))
     # the same star query through the per-query executor
-    line = _per_query_run("star_per_query", [fact] + dims, q,
-                          [" ".join(map(str, exp))], star_rows + 2 * n_keys,
-                          dev)
+    line = _per_query_run("star_per_query", *args)
     line["batch_path_warm_s"] = lines[-1]["warm_query_s"]
     lines.append(line)
     print(json.dumps(line))
     # the same star through the batch path's materialized fallback: the
     # dense fused stage (defer_attach, terminal, project_defer) and the
     # sort backend's per-op path
-    from radixhashjoin_tpu_torch.config import EngineConfig
     for name, cfg, dense in (
             ("star_batch_materialized", EngineConfig(factorized=False), True),
             ("star_batch_sort", EngineConfig(join_backend="sort"), False)):
-        line = _batch_fallback_run(name, [fact] + dims, q,
-                                   [" ".join(map(str, exp))],
-                                   star_rows + 2 * n_keys, dev, cfg, dense)
+        line = _batch_fallback_run(name, *args, cfg, dense)
         lines.append(line)
         print(json.dumps(line))
     # phase 4c: the star through the exchange path: case 1, then case 2,
     # then the projections
-    dist.append(_dist_run("dist_star_exchange", [fact] + dims, q,
-                          [" ".join(map(str, exp))], star_rows + 2 * n_keys,
-                          dev, EngineConfig(mesh_devices=1,
-                                            factorized=False)))
-    del fact, dims, k1, k2, live
-    _free(dev)
+    dist.append(_dist_run("dist_star_exchange", *args,
+                          EngineConfig(mesh_devices=1, factorized=False)))
+    del star, args
+    free_memory(dev)
 
     for line in _triangle(rng, dev, triangle_rows):
         lines.append(line)
@@ -1396,26 +1289,13 @@ def phase_dist_cli(dev, default_lines):
     import torch
     from radixhashjoin_tpu_torch import kernels
     from radixhashjoin_tpu_torch.config import EngineConfig
-    from radixhashjoin_tpu_torch.models.engine import Engine
     from radixhashjoin_tpu_torch.oracle import run_workload
     from radixhashjoin_tpu_torch.parallel import multihost
     from radixhashjoin_tpu_torch.parallel.worker import serve
-    from radixhashjoin_tpu_torch.storage import load_relation, write_relation
     from radixhashjoin_tpu_torch.workload import parse_work_stream
 
-    rng = np.random.default_rng(2018)            # phase 3's catalog
-    rels = make_contest_catalog(rng)
-    tree = make_tree_queries(rng, rels)
     with tempfile.TemporaryDirectory() as tmp:
-        paths = []
-        for i, cols in enumerate(rels):
-            paths.append(os.path.join(tmp, f"r{i}"))
-            write_relation(paths[-1], cols)
-        loaded = [load_relation(p) for p in paths]
-        planner = Engine(loaded, EngineConfig(), device=dev).batch_executor
-        extra, _kinds = make_fallback_queries(np.random.default_rng(7), rels,
-                                              planner)
-        work = tree + extra[:10] + ["F"] + extra[10:] + ["F"]
+        paths, loaded, tree, work, _kinds = _contest_files(tmp, dev)
         want = run_workload(loaded, parse_work_stream(work))
         if default_lines != want:
             raise AssertionError("phase 3c's default CLI lines differ from "
@@ -1547,15 +1427,6 @@ def _huge_run(name, rels, q, expected, n_fact, n_tuples, bytes_per_row, dev):
     return line, launches
 
 
-def _free(dev):
-    import gc
-
-    import torch
-    gc.collect()
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-
-
 def phase_huge(dev, zipf_rows=HUGE_ZIPF_ROWS, star_rows=HUGE_STAR_ROWS,
                n_keys=DIM_KEYS):
     """Facts past the 2^28-row huge-node threshold through
@@ -1564,9 +1435,8 @@ def phase_huge(dev, zipf_rows=HUGE_ZIPF_ROWS, star_rows=HUGE_STAR_ROWS,
     key 2, three sums) at 2^29 + 4099 rows, each against its closed-form
     NumPy oracle. Returns the lines and the launches of their first
     runs, summed."""
-    from radixhashjoin_tpu_torch.storage import Relation
-    from radixhashjoin_tpu_torch.workload import (FilterPred, JoinPred,
-                                                  Projection, Query)
+    from radixhashjoin_tpu_torch import bench_scale
+    from radixhashjoin_tpu_torch.bench_scale import free_memory
     rng = np.random.default_rng(29)
     lines, total = [], {}
 
@@ -1576,61 +1446,30 @@ def phase_huge(dev, zipf_rows=HUGE_ZIPF_ROWS, star_rows=HUGE_STAR_ROWS,
             total[k] = total.get(k, 0) + v
         lines.append(line)
         print(json.dumps(line))
-        _free(dev)
+        free_memory(dev)
 
-    # the Zipf join of phase 4 (scripts/bench_scale.py:253-279), past
-    # 2^29 rows with a ragged tail; the fused pass reads the key (4 B) and
-    # the uint16 plane (2 B) of a fact row (bench_scale.py:312)
+    # the Zipf join of phase 4 (bench_scale.zipf_join), past 2^29 rows
+    # with a ragged tail; the fused pass reads the key (4 B) and the
+    # uint16 plane (2 B) of a fact row (scripts/bench_scale.py:312)
     t0 = time.perf_counter()
-    u = rng.random(zipf_rows) + 1e-12
-    zk = np.minimum(u ** (-1.0 / 0.1), n_keys - 1).astype(np.uint64)
-    del u
-    pay = rng.integers(0, 1000, zipf_rows).astype(np.uint64)
-    dval = rng.integers(0, 1000, n_keys).astype(np.uint64)
-    keep = dval < 900
-    wk = keep[zk.astype(np.intp)]
-    exp0 = int(pay[wk].sum(dtype=np.uint64))
-    cnt = np.bincount(zk[wk].astype(np.intp), minlength=n_keys)
-    exp1 = int((dval * cnt.astype(np.uint64) * keep).sum(dtype=np.uint64))
-    del wk, cnt
-    rels = [Relation([zk, pay]),
-            Relation([np.arange(n_keys, dtype=np.uint64), dval])]
+    case = bench_scale.zipf_join(zipf_rows, rng, n_keys)
     print(json.dumps({"phase": "huge", "cell": "zipf_huge",
                       "setup_s": time.perf_counter() - t0}))
-    q = Query([0, 1], [JoinPred(0, 0, 1, 0)], [FilterPred(1, 1, "<", 900)],
-              [Projection(0, 1), Projection(1, 1)])
-    run("zipf_huge", rels, q, [f"{exp0} {exp1}"], zipf_rows,
+    run("zipf_huge", case.rels, case.query, case.expected, zipf_rows,
         zipf_rows + n_keys, 6)
-    del rels, zk, pay
-    _free(dev)
+    del case
+    free_memory(dev)
 
-    # the star at config-5 scale (scripts/bench_scale.py:315-349): key1 +
-    # key2 (4 B each) + the uint16 plane (2 B) a fact row (:358)
+    # the star at config-5 scale (bench_scale.star_big): key1 + key2 (4 B
+    # each) + the uint16 plane (2 B) a fact row (scripts/bench_scale.py:358)
     t0 = time.perf_counter()
-    u = rng.random(star_rows) + 1e-12
-    k1 = np.minimum(u ** (-1.0 / 0.1), n_keys - 1).astype(np.uint64)
-    del u
-    k2 = rng.integers(0, n_keys, star_rows).astype(np.uint64)
-    fv = rng.integers(0, 1000, star_rows).astype(np.uint64)
-    d1v = rng.integers(0, 1000, n_keys).astype(np.uint64)
-    d2v = rng.integers(0, 1000, n_keys).astype(np.uint64)
-    live = (d1v < 900)[k1.astype(np.intp)]
-    exp = [int(fv[live].sum(dtype=np.uint64)),
-           int(d1v[k1[live].astype(np.intp)].sum(dtype=np.uint64)),
-           int(d2v[k2[live].astype(np.intp)].sum(dtype=np.uint64))]
-    del live
-    keys = np.arange(n_keys, dtype=np.uint64)
-    rels = [Relation([k1, k2, fv]), Relation([keys, d1v]),
-            Relation([keys, d2v])]
+    case = bench_scale.star_big(star_rows, rng, n_keys)
     print(json.dumps({"phase": "huge", "cell": "star_huge",
                       "setup_s": time.perf_counter() - t0}))
-    q = Query([0, 1, 2], [JoinPred(0, 0, 1, 0), JoinPred(0, 1, 2, 0)],
-              [FilterPred(1, 1, "<", 900)],
-              [Projection(0, 2), Projection(1, 1), Projection(2, 1)])
-    run("star_huge", rels, q, [" ".join(map(str, exp))], star_rows,
+    run("star_huge", case.rels, case.query, case.expected, star_rows,
         star_rows + 2 * n_keys, 10)
-    del rels, k1, k2, fv
-    _free(dev)
+    del case
+    free_memory(dev)
     return lines, total
 
 
@@ -1656,6 +1495,110 @@ def phase_shootout(dev, log_rows=SHOOTOUT_LOG_ROWS):
     print(json.dumps({"phase": "shootout", "log_rows": log_rows,
                       "seconds": seconds, "launches": launches}))
     return launches
+
+
+# ---- phase 6: the port's bench entry points ----
+
+# the metric names bench_scale prints under BENCH_SCALE_ARGV: every one of
+# the reference script's but the chain's, which this phase runs past 2^28
+BENCH_SCALE_METRICS = {
+    "dense_probe_uniform_tuples_per_s", "dense_probe_fk_tuples_per_s",
+    "dense_probe_narrow_domain_tuples_per_s",
+    "star_join_engine_tuples_per_s", "star_join_smalldim_engine_tuples_per_s",
+    "zipf_join_engine_tuples_per_s", "star_join_big_engine_tuples_per_s",
+    "skewaware_dist_join_tuples_per_s"}
+
+
+def _add_launches(what, launches, keys, dev, total):
+    """Add one run's launches to `total`; on the card, raise unless each
+    kernel in `keys` launched in that run."""
+    if dev.type == "cuda" and any(launches[k] == 0 for k in keys):
+        raise AssertionError(f"{what} skipped a kernel: {launches}")
+    for k, v in launches.items():
+        total[k] += v
+
+
+def _bench_main(module, argv, dev):
+    """module.main(argv + --device) in-process, as a user runs it: its
+    JSON lines, printed, each held to "exact" where it says so; raises
+    unless it exits 0."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    rc = module.main(list(argv) + ["--device", dev.type], out)
+    seconds = time.perf_counter() - t0
+    print(out.getvalue(), end="")
+    if rc != 0:
+        raise AssertionError(f"{module.__name__} {argv} exited {rc}")
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines()]
+    if not lines or any(ln.get("exact", True) is not True for ln in lines):
+        raise AssertionError(f"{module.__name__} {argv}: {lines}")
+    print(json.dumps({"phase": "bench", "entry": module.__name__,
+                      "argv": list(argv), "lines": len(lines),
+                      "seconds": seconds}))
+    return lines
+
+
+def phase_bench(dev, chain_rows=CHAIN_ROWS, scale_argv=BENCH_SCALE_ARGV,
+                planner_argvs=PLANNER_ARGVS):
+    """The port's bench entry points as users run them: bench_scale's
+    configs (the three dense probes at 2^26 rows a side, the star and the
+    small-dimension star at 2^24 fact rows, the Zipf join and the big star
+    at 2^24, the skew-aware join at 2^24 rows in a world of one NCCL
+    rank), the two-deep chain at chain_rows a fact through the huge-node
+    pass (phase 4b's measurements: launches of its first run, peak memory,
+    the sync check; its data and closed form from bench_scale.chain), the
+    70-query bench twin, bench_planner at both sizes and bench_microops;
+    every line exact.
+
+    Each run's launches are counted from 0 by its entry point (a line's
+    `launches`: a bench_scale config's exactness run, the twin's cold
+    pass, the planner's first run of each order) or by _huge_run (the
+    chain's first run). On the card each dense probe, engine config, the
+    chain and the twin must launch the build and lookup, and the skew join
+    the rank kernel; the planner's per-query path joins with the sort
+    probe and launches none. The timed calls and bench_microops' timing
+    loops are not counted. Returns the counted runs' launches, summed."""
+    from radixhashjoin_tpu_torch import (bench, bench_microops, bench_planner,
+                                         bench_scale, kernels)
+    from radixhashjoin_tpu_torch.bench_scale import free_memory
+    total = {k: 0 for k in kernels.LAUNCHES}
+    lines = _bench_main(bench_scale, scale_argv, dev)
+    names = {ln["metric"] for ln in lines}
+    if names != BENCH_SCALE_METRICS:
+        raise AssertionError(f"bench_scale metrics {sorted(names)}")
+    for ln in lines:
+        keys = (("rank_hist",) if ln["metric"].startswith("skewaware")
+                else WAVE_KERNELS)
+        _add_launches(ln["metric"], ln["launches"], keys, dev, total)
+
+    # the chain: the CLI's --zipf-only --chain-rows data at this row count
+    t0 = time.perf_counter()
+    case = bench_scale.chain(chain_rows, np.random.default_rng(0))
+    print(json.dumps({"phase": "bench", "cell": "chain_huge",
+                      "setup_s": time.perf_counter() - t0}))
+    line, first = _huge_run("chain_huge", case.rels, case.query,
+                            case.expected, chain_rows, 2 * chain_rows,
+                            8 + 6 + 10, dev)
+    line.update(bench_scale.chain_line(
+        chain_rows, case.expected[0], float(np.median(line["warm_query_s"])),
+        dev))
+    print(json.dumps(line))
+    del case
+    free_memory(dev)
+    _add_launches("chain_huge", first, WAVE_KERNELS, dev, total)
+
+    twin, = _bench_main(bench, [], dev)
+    if dev.type == "cuda" and not isinstance(twin["value"], float):
+        raise AssertionError(f"bench: {twin}")
+    _add_launches("bench", twin["launches"], WAVE_KERNELS, dev, total)
+    for argv in planner_argvs:
+        planner, = _bench_main(bench_planner, argv, dev)
+        for order in ("written", "reordered"):
+            _add_launches(f"bench_planner {order}",
+                          planner["launches_" + order], (), dev, total)
+    _bench_main(bench_microops, [], dev)
+    print(json.dumps({"phase": "bench", "launches": total}))
+    return total
 
 
 def main() -> int:
@@ -1704,6 +1647,10 @@ def main() -> int:
                 + launches_huge.get(k, 0) + launches_dist[k]
                 for k in launches}
     launches_radix = phase_shootout(dev)
+    launches_bench = phase_bench(dev)
+    launches = {k: launches[k] + launches_bench[k] for k in launches}
+    launches_dist = {k: launches_dist[k] + launches_bench[k]
+                     for k in launches_dist}
     for pkg in ("jax", "radixhashjoin_tpu"):
         if pkg in sys.modules:
             raise AssertionError(f"the port's run imported {pkg}")

@@ -17,7 +17,7 @@ here, and a CUDA tensor either runs the kernel or fails.
 
 `LAUNCHES` counts kernel launches per wrapper ("bincount", "gather",
 "radix_hist", "rank_hist"), so a run can show that a path went through
-these kernels.
+these kernels; `counted(fn)` reads the launches of one call.
 """
 
 from __future__ import annotations
@@ -48,6 +48,14 @@ RANK_BLOCK = 2048
 LAUNCHES = {"bincount": 0, "gather": 0, "radix_hist": 0, "rank_hist": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+def counted(fn):
+    """(fn(), the launches it made): every count is set to 0 before it."""
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    result = fn()
+    return result, dict(LAUNCHES)
 
 
 def find_nvcc() -> str:

@@ -5,7 +5,10 @@ oracle, the per-query executor and the wave-batched materialized
 fallback (terminal joins, the dense pair-set test, deferred attaches,
 every query shape through the batch path) on CUDA against their CPU
 runs, the engine settings (stage_group, ftree_wave=False,
-defer_middle=False) against one round, and the profiler's shares. Marked `cuda`; they skip without a card. They import
+defer_middle=False) against one round, the profiler's shares,
+bench_scale's two-deep huge chain at shrunken thresholds against its
+closed form, and bench_scale's CLI with every config's exactness run on
+the kernels. Marked `cuda`; they skip without a card. They import
 nothing of jax or of the JAX package, so they also run where jax is
 absent:
 
@@ -738,6 +741,54 @@ def test_huge_pass_cuda_matches_cpu(dev, monkeypatch):
                    for q in queries]
     windows = -(-n // 2048)
     assert grew["bincount"] >= windows and grew["gather"] >= windows
+
+
+def test_chain_two_deep_huge_cuda_matches_closed_form(dev, monkeypatch):
+    """bench_scale's two-deep chain (fact1 ⋈ fact2 ⋈ dim) with both facts
+    just past a shrunken huge-node threshold (2^14 + 1097 rows: five
+    windows of 4096, the last one ragged) on the card: its line equals
+    the closed form and the CPU run, and its three window loops launch
+    the build at least three times and the lookup four times a window."""
+    from radixhashjoin_tpu_torch import bench_scale
+    from radixhashjoin_tpu_torch.ops import factorized
+    _huge_shrunk(monkeypatch)
+    monkeypatch.setattr(factorized, "_BIG_WAVE_ROWS", 1 << 14)
+    n = (1 << 14) + 1097
+    case = bench_scale.chain(n, np.random.default_rng(0), n_keys=512)
+    before = dict(kernels.LAUNCHES)
+    eng = Engine(case.rels, EngineConfig(), device=dev)
+    got = eng.run_workload([[case.query]])
+    grew = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    assert got == case.expected
+    assert eng.batch_executor.counters["ftree_queries"] == 1
+    assert Engine(case.rels, EngineConfig(),
+                  device="cpu").run_workload([[case.query]]) == got
+    windows = -(-n // factorized._win_rows())
+    assert windows == 5
+    assert grew["bincount"] >= 3 * windows and grew["gather"] >= 4 * windows
+
+
+def test_bench_scale_lines_launch_the_kernels(dev):
+    """bench_scale's CLI at 2^16 rows on the card, every config: each line
+    exact (the dense probes element by element) and timed, each dense
+    probe's and engine config's exactness run launching the build and the
+    lookup, the skew join's the rank kernel."""
+    import io
+    import json
+
+    from radixhashjoin_tpu_torch import bench_scale
+    out = io.StringIO()
+    assert bench_scale.main(["--rows", "16", "--zipf-engine", "--zipf-rows",
+                             "16", "--star-rows", "16", "--chain-rows", "16",
+                             "--skew", "--skew-rows", "65536", "--devices",
+                             "1"], out) == 0
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines()]
+    assert len(lines) == 10
+    for ln in lines:
+        assert ln["exact"] is True and isinstance(ln["value"], float), ln
+        keys = (("rank_hist",) if ln["metric"].startswith("skewaware")
+                else ("bincount", "gather"))
+        assert all(ln["launches"][k] > 0 for k in keys), ln
 
 
 @pytest.mark.parametrize("n,n_bins", [(1, 1), (5000, 4), (1 << 20, 8)])
