@@ -105,7 +105,27 @@ Phases (any failure raises and exits non-zero; nothing is swallowed):
      twin must launch the build and lookup, the skew join the rank
      kernel. The planner's per-query path joins with the sort probe and
      launches none; the timed calls and bench_microops' timing loops are
-     not counted.
+     not counted;
+  7. the rest of the distributed layer, its pipelined chunk loops and
+     entry points: bench_dist_scale at 2^26 rows a rank in a world of one
+     NCCL rank (the 2^26-row star through the d_ftree wave, two 2^26-row
+     permutation sides through the case-1 exchange and d_project, each
+     exact, with each operator's argument, output and peak bytes and the
+     gcap against worst-case lines); scale_efficiency at 2^22 rows a side
+     with N = 1 (NCCL) and N = 2 (gloo ranks sharing the card), exact;
+     then phase 4c's dist_zipf_exchange and dist_star_exchange cells at
+     K = 1 and K = 4 chunks (exchange, gather and broadcast), exact, their
+     warm walls in alternating pairs; one warm K = 4 d_case1_probe of the
+     Zipf cell profiled, which must show NCCL's device work (a kernel;
+     in a world of one, a device-to-device copy on NCCL's stream)
+     overlapping a compute-stream kernel on another stream, and the Zipf
+     cell's
+     exchange round (d_case1_probe, d_case1_expand, d_project) under the
+     sync debug mode with 0 synchronizing calls. The launches of every
+     exactness run (bench_dist_scale's configs, rank 0 of each
+     scale_efficiency world, the cells' first runs) join the kernels line:
+     the build and lookup on each ftree run, the rank kernel and lookup on
+     each exchange.
 
 Prints the kernels' JSON summary, the card's name and power limit, then
 as its last line {"ok": true, "device": {...}}. Without a CUDA card it
@@ -145,6 +165,12 @@ BENCH_SCALE_ARGV = ["--rows", "26", "--skew", "--skew-rows", str(1 << 24),
                     "--star-rows", "24"]
 CHAIN_ROWS = (1 << 28) + 4097
 PLANNER_ARGVS = ([], ["--log-rows", "20", "--log-distinct", "16"])
+
+# phase 7: the distributed entry points; the K = 1 / K = 4 walls in
+# AB_PAIRS alternating pairs a cell
+DIST_SCALE_ARGV = ["--rows-per-chip", "26", "--devices", "1"]
+SCALE_EFF_ARGV = ["--rows", "22", "--ns", "1,2"]
+DIST_AB_PAIRS = 5
 
 # the factorized wave's kernels; the radix kernels run on the shootout
 WAVE_KERNELS = ("bincount", "gather")
@@ -1601,6 +1627,220 @@ def phase_bench(dev, chain_rows=CHAIN_ROWS, scale_argv=BENCH_SCALE_ARGV,
     return total
 
 
+# ---- phase 7: the pipelined exchange and the distributed entry points ----
+
+DIST_SCALE_METRICS = [
+    "dist_star_ftree_tuples_per_s", "dist_mem_d_ftree_star",
+    "dist_exchange_join_tuples_per_s", "dist_mem_d_case1_probe",
+    "dist_mem_d_case1_expand", "dist_mem_d_project_gcap",
+    "dist_mem_d_project_worst_case"]
+
+
+def _overlap(trace_path):
+    """From a chrome trace: NCCL's device ops (each device event inside
+    the profiler's "nccl:*" span on NCCL's stream: a kernel, or, in a
+    world of one, a device-to-device copy), and the microseconds each
+    overlaps kernels on the other streams (the compute stream's; one
+    stream's kernels do not overlap each other)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    spans = [e for e in events if e.get("ph") == "X"
+             and e.get("cat") == "gpu_user_annotation"
+             and e["name"].startswith("nccl:")]
+
+    def inside(e, a):
+        return (e["tid"] == a["tid"] and a["ts"] <= e["ts"]
+                and e["ts"] + e["dur"] <= a["ts"] + a["dur"])
+    nccl = [e for e in dev if "nccl" in e["name"].lower()
+            or any(inside(e, a) for a in spans)]
+    streams = {e["tid"] for e in nccl}
+    compute = [e for e in dev if e["cat"] == "kernel"
+               and e["tid"] not in streams]
+    per = []
+    for a in nccl:
+        lap = sum(max(0.0, min(a["ts"] + a["dur"], b["ts"] + b["dur"])
+                      - max(a["ts"], b["ts"])) for b in compute)
+        per.append(lap)
+    by_stream = {}
+    for e in dev:
+        by_stream[str(e["tid"])] = by_stream.get(str(e["tid"]), 0) + 1
+    return {"nccl_spans": sorted({a["name"] for a in spans}),
+            "nccl_device_ops": len(nccl),
+            "nccl_op_names": sorted({e["name"][:60] for e in nccl}),
+            "nccl_us": sum(e["dur"] for e in nccl),
+            "nccl_streams": sorted(map(str, streams)),
+            "device_events_by_stream": by_stream,
+            "compute_kernels": len(compute),
+            "overlapping_nccl_ops": sum(lap > 0 for lap in per),
+            "overlapped_us": sum(per),
+            "overlapped_us_by_op": per}
+
+
+def _overlap_profile(run):
+    """One warm run under torch.profiler, its chrome trace read by
+    _overlap."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        return _overlap(path)
+
+
+def _exchange_round_syncs(spy):
+    """Where the captured exchange round (d_case1_probe, d_case1_expand,
+    d_project on their last arguments) made synchronizing calls under
+    torch.cuda.set_sync_debug_mode("warn"): one "file:line" each."""
+    import warnings
+
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for name in ("d_case1_probe", "d_case1_expand", "d_project"):
+                a, k = spy.calls[name]
+                spy.orig[name](*a, **k)
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return [f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught
+            if "synchronizing" in str(w.message)]
+
+
+def _quartiles(xs):
+    q1, med, q3 = np.percentile(xs, [25, 50, 75])
+    return {"median": float(med), "iqr": float(q3 - q1),
+            "min": float(min(xs)), "max": float(max(xs))}
+
+
+def _chunk_ab(name, case, n_tuples, dev, mesh, total, **cfg):
+    """One phase 4c exchange cell at K = 1 and K = 4 (exchange, gather and
+    broadcast chunks): each executor's first run exact, its launches
+    counted from 0 (the rank kernel and the lookup must launch); then
+    DIST_AB_PAIRS alternating pairs of warm runs, each exact. Returns
+    (line, the K = 4 executor)."""
+    from radixhashjoin_tpu_torch import kernels
+    from radixhashjoin_tpu_torch.config import EngineConfig
+    from radixhashjoin_tpu_torch.parallel.dist_executor import DistExecutor
+    exs, first, counted = {}, {}, {}
+    for k in (1, 4):
+        exs[k] = DistExecutor(case.rels, EngineConfig(
+            mesh_devices=1, factorized=False, exchange_chunks=k,
+            gather_chunks=k, broadcast_chunks=k, **cfg), mesh=mesh)
+        t0 = time.perf_counter()
+        got, launches = kernels.counted(lambda: exs[k].run_batch(
+            [case.query]))
+        first[k] = time.perf_counter() - t0
+        if got != case.expected:
+            raise AssertionError(f"{name} K={k}: {got} != {case.expected}")
+        _add_launches(f"{name} K={k}", launches, ("rank_hist", "gather"),
+                      dev, total)
+        counted[k] = launches
+    walls = {1: [], 4: []}
+    for i in range(DIST_AB_PAIRS):
+        for k in ((1, 4) if i % 2 == 0 else (4, 1)):
+            t0 = time.perf_counter()
+            got = exs[k].run_batch([case.query])    # ends in a readback
+            walls[k].append(time.perf_counter() - t0)
+            if got != case.expected:
+                raise AssertionError(f"{name} K={k}: warm run differs")
+    line = {"phase": "dist_pipeline", "cell": name,
+            "join_input_tuples": n_tuples, "first_run_s": first,
+            "launches_first_run": counted, "warm_s_k1": walls[1], "warm_s_k4": walls[4],
+            "k1": _quartiles(walls[1]), "k4": _quartiles(walls[4]),
+            "exact": True}
+    return line, exs[4]
+
+
+def phase_dist_pipeline(dev, zipf_rows=ZIPF_ROWS, star_rows=STAR_ROWS,
+                        n_keys=DIM_KEYS, scale_argv=DIST_SCALE_ARGV,
+                        eff_argv=SCALE_EFF_ARGV):
+    """Phase 7: bench_dist_scale and scale_efficiency as users run them,
+    then phase 4c's exchange cells at K = 1 and K = 4, the overlap
+    profile and the sync check of the K = 4 Zipf cell. Returns the
+    counted runs' launches, summed."""
+    from radixhashjoin_tpu_torch import (bench_dist_scale, bench_scale,
+                                         kernels, scale_efficiency)
+    from radixhashjoin_tpu_torch.bench_scale import free_memory
+    from radixhashjoin_tpu_torch.parallel import multihost
+    t0 = time.perf_counter()
+    total = {k: 0 for k in kernels.LAUNCHES}
+    lines = _bench_main(bench_dist_scale, scale_argv, dev)
+    if [ln["metric"] for ln in lines] != DIST_SCALE_METRICS:
+        raise AssertionError(f"bench_dist_scale metrics "
+                             f"{[ln['metric'] for ln in lines]}")
+    _add_launches("dist_star_ftree", lines[0]["launches"], WAVE_KERNELS,
+                  dev, total)
+    _add_launches("dist_exchange_join", lines[2]["launches"],
+                  ("rank_hist", "gather"), dev, total)
+    free_memory(dev)
+
+    lines = _bench_main(scale_efficiency, eff_argv, dev)
+    worlds = [ln for ln in lines
+              if ln["metric"] == "dist_engine_join_tuples_per_s"]
+    want = ([("nccl", 1), ("gloo", 2)] if dev.type == "cuda"
+            else [("gloo", None)] * 2)
+    if [(ln["backend"], ln["ranks_per_card"]) for ln in worlds] != want:
+        raise AssertionError(f"scale_efficiency worlds: {worlds}")
+    for ln in worlds:
+        _add_launches(f"scale_efficiency N={ln['devices']}", ln["launches"],
+                      WAVE_KERNELS, dev, total)
+
+    # phase 4's relations again (same draws), through phase 4c's
+    # exchange cells at K = 1 and K = 4
+    rng = np.random.default_rng(0)
+    mesh = _dist_world(dev)
+    try:
+        zipf = bench_scale.zipf_join(zipf_rows, rng, n_keys)
+        with bench_dist_scale.Spy() as spy:
+            line, ex4 = _chunk_ab("dist_zipf_exchange", zipf,
+                                  zipf_rows + n_keys, dev, mesh, total,
+                                  skew_heavy_fraction=1.0)
+            calls = dict(mesh.calls)
+            if ex4.run_batch([zipf.query]) != zipf.expected:  # captured
+                raise AssertionError("dist_zipf_exchange: captured run")
+            line["collectives_per_query_k4"] = {
+                c: mesh.calls[c] - calls[c] for c in calls}
+            if dev.type == "cuda":
+                a, k = spy.calls["d_case1_probe"]
+                probe = spy.orig["d_case1_probe"]
+                line["overlap_d_case1_probe_k4"] = ov = _overlap_profile(
+                    lambda: probe(*a, **k))
+                if not ov["overlapping_nccl_ops"]:
+                    raise AssertionError(f"no NCCL device op overlaps a "
+                                         f"compute kernel: {ov}")
+                syncs = _exchange_round_syncs(spy)
+                line["syncs_in_exchange_round"] = len(syncs)
+                if syncs:
+                    raise AssertionError(f"the exchange round made "
+                                         f"synchronizing calls at {syncs}")
+                del a, k
+            spy.calls.clear()
+        print(json.dumps(line))
+        del zipf, ex4
+        free_memory(dev)
+        star = bench_scale.star(star_rows, rng, n_keys)
+        line, _ex4 = _chunk_ab("dist_star_exchange", star,
+                               star_rows + 2 * n_keys, dev, mesh, total)
+        print(json.dumps(line))
+        del star, _ex4
+        free_memory(dev)
+    finally:
+        multihost.shutdown()
+    print(json.dumps({"phase": "dist_pipeline", "launches": total,
+                      "seconds": time.perf_counter() - t0}))
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1648,9 +1888,11 @@ def main() -> int:
                 for k in launches}
     launches_radix = phase_shootout(dev)
     launches_bench = phase_bench(dev)
-    launches = {k: launches[k] + launches_bench[k] for k in launches}
+    launches_pipe = phase_dist_pipeline(dev)
+    launches = {k: launches[k] + launches_bench[k] + launches_pipe[k]
+                for k in launches}
     launches_dist = {k: launches_dist[k] + launches_bench[k]
-                     for k in launches_dist}
+                     + launches_pipe[k] for k in launches_dist}
     for pkg in ("jax", "radixhashjoin_tpu"):
         if pkg in sys.modules:
             raise AssertionError(f"the port's run imported {pkg}")

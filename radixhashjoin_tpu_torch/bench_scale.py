@@ -471,23 +471,10 @@ def run_skew(n: int, n_devices: int, dev: torch.device) -> dict:
     """The skew-aware join on n_devices ranks: one in this process (a
     world of one, joined here unless one exists), else spawned ranks of
     dev's type. Rank 0's result."""
-    import torch.distributed as dist
-
     from .parallel import multihost
-    from .parallel.mesh import make_mesh
-    args = (n, N_KEYS, dev.type == "cuda")
-    if n_devices > 1:
-        return multihost.run_ranks(_skew_rank, n_devices, args,
-                                   device=dev.type, timeout=900)[0]
-    joined = not dist.is_initialized()
-    if joined:
-        multihost.init_multihost(f"127.0.0.1:{multihost.free_port()}", 1, 0,
-                                 device=dev)
-    try:
-        return _skew_rank(make_mesh(1), *args)
-    finally:
-        if joined:
-            multihost.shutdown()
+    return multihost.run_world(_skew_rank, n_devices,
+                               (n, N_KEYS, dev.type == "cuda"), device=dev,
+                               timeout=900)
 
 
 def main(argv: Optional[Sequence[str]] = None,

@@ -30,6 +30,15 @@ Join strategy per chaining case:
   case 3 / same-slot: local row filters; the pair-set NULL rule needs
       the other side's values (all_gather) and a global OR.
 
+Every chunked loop is software-pipelined (the port's form of the
+reference's latency-hiding schedule,
+radixhashjoin_tpu/parallel/dist_ops.py:115-121 and :386-396):
+chunk k+1's collective is issued (Mesh async_op) before chunk k's is
+waited for, so it flies while chunk k's consumer computes; never more
+than two chunks of one loop are in flight, so chunking still shrinks
+the transients to 1/K. Every rank issues the same collectives in the
+same order, and nothing is read back between an issue and its wait.
+
 Rank-local values that a host decision will read come back as such
 (overflow flags, live counts, pair totals, sums): the executor makes
 them global with one collective before any readback. The per-destination
@@ -55,8 +64,6 @@ from ..ops.radix_partition import partition_by_digit
 from ..utils.limbs import fold_window
 from .dist_join import LEFT_SENTINEL, _bincount
 from .mesh import Mesh
-
-
 
 
 def _false(device) -> torch.Tensor:
@@ -97,6 +104,19 @@ def _flat_probe(lv: torch.Tensor, rv: torch.Tensor):
     return order, lo, off, cum, total
 
 
+def _pipelined(issue, k_chunks: int, first=None):
+    """Yield issue(k).wait() for k < k_chunks, issuing chunk k+1
+    before chunk k is waited for: chunk k+1's collective flies while the
+    caller consumes chunk k, and at most two chunks are in flight.
+    `first`: chunk 0's Pending, where the caller issued it earlier to
+    overlap its own compute."""
+    pending = issue(0) if first is None else first
+    for k in range(k_chunks):
+        nxt = issue(k + 1) if k + 1 < k_chunks else None
+        yield pending.wait()
+        pending = nxt
+
+
 def _dist_gather(mesh: Mesh, col, idxs, live, chunks: int = 1, cap: int = 0):
     """Gather a row-sharded column at GLOBAL rowids owned by any rank:
     (values, overflow). Rowid g lives on rank g // len(col). Dead lanes
@@ -107,50 +127,66 @@ def _dist_gather(mesh: Mesh, col, idxs, live, chunks: int = 1, cap: int = 0):
     chunks > 1 splits the requests into K sub-gathers (K a power of two
     dividing the lane count, each >= 4096 lanes), so the request matrix
     shrinks to (ranks, m / K). cap > 0 bounds the per-destination request
-    capacity: the matrix becomes (ranks, cap)."""
+    capacity: the matrix becomes (ranks, cap).
+
+    Each sub-gather is a chain: bin by owner and issue the request
+    all_to_all; wait, gather locally, issue the response all_to_all;
+    wait and scatter. Chunk k+1's request is issued before chunk k's
+    lands, so it flies while chunk k gathers, answers and scatters: at
+    most two collectives (two chunks) in flight."""
     m = idxs.shape[0]
     k = 1
     while k * 2 <= chunks and m % (k * 2) == 0 and m // (k * 2) >= 4096:
         k *= 2
-    if k == 1:
-        return _dist_gather_chunk(mesh, col, idxs, live, cap)
     c = m // k
-    outs = [_dist_gather_chunk(mesh, col, idxs[i * c:(i + 1) * c],
-                               live[i * c:(i + 1) * c], cap)
-            for i in range(k)]
-    ovf = outs[0][1]
-    for _v, o in outs[1:]:
+    out = torch.empty(m, dtype=col.dtype, device=idxs.device)
+    binned, ovfs = [], []
+
+    def request(i):
+        sl = slice(i * c, (i + 1) * c)
+        pending, state, ovf = _gather_request(mesh, col, idxs[sl],
+                                              live[sl], cap)
+        binned.append(state)
+        ovfs.append(ovf)
+        return pending
+
+    for i, req_r in enumerate(_pipelined(request, k)):
+        resp = gather_clamped(col, (req_r - _shard_base(mesh, col))
+                              .reshape(-1))
+        ans = mesh.all_to_all(resp.view(req_r.shape))
+        _gather_land(mesh.size, ans, *binned[i], out[i * c:(i + 1) * c])
+        binned[i] = None
+    ovf = ovfs[0]
+    for o in ovfs[1:]:
         ovf = ovf | o
-    return torch.cat([v for v, _o in outs]), ovf
+    return out, ovf
 
 
-def _dist_gather_chunk(mesh: Mesh, col, idxs, live, cap: int = 0):
-    """One request/response exchange of _dist_gather: a stable partition
-    of the requests by owner (the rank kernel on a card), two all_to_alls,
-    two gathers and a scatter."""
+def _gather_request(mesh: Mesh, col, idxs, live, cap: int):
+    """The first stage of one sub-gather: a stable partition of the
+    requests by owner (the rank kernel on a card) and the issued request
+    all_to_all. Returns (its Pending, the state _gather_land needs, the
+    rank-local overflow)."""
     n = mesh.size
-    ccap = col.shape[0]
     m = idxs.shape[0]
     dev = idxs.device
     w = m if cap <= 0 or cap >= m else cap       # per-destination capacity
-    pos = _iota(m, dev)
-    dest = torch.where(live, idxs // ccap, n).to(torch.int32)
-    (ip, pp), hist, offs = partition_by_digit(dest, (idxs, pos), n)
-    j = _iota(w, dev)[None, :]
-    src = (offs[:, None] + j).clamp(0, m - 1)
-    req = ip[src.long()]                          # (n, w): my asks by owner
-    req_r = mesh.all_to_all(req)                  # row s: rank s's asks
-    resp = gather_clamped(col, (req_r - _shard_base(mesh, col)).reshape(-1))
-    ans = mesh.all_to_all(resp.view(n, w))        # row d: rank d's answers
-    # my request to owner d at partitioned position k sits at
-    # ans[d, k - offs[d]]
-    db = dest.index_select(0, pp).clamp(0, n - 1).long()
-    k = _iota(m, dev)
-    got = ans[db, (k - offs[db]).clamp(0, w - 1).long()]
-    out = torch.empty(m, dtype=col.dtype, device=dev)
-    out[pp.long()] = got
+    dest = torch.where(live, idxs // col.shape[0], n).to(torch.int32)
+    (ip, pp), hist, offs = partition_by_digit(dest, (idxs, _iota(m, dev)), n)
+    src = (offs[:, None] + _iota(w, dev)[None, :]).clamp(0, m - 1)
+    pending = mesh.all_to_all(ip[src.long()], async_op=True)  # (n, w) asks
     ovf = (hist > w).any() if w < m else _false(dev)
-    return out, ovf
+    return pending, (dest, pp, offs, w), ovf
+
+
+def _gather_land(n: int, ans, dest, pp, offs, w: int, out):
+    """The last stage of one sub-gather: my request to owner d at
+    partitioned position k sits at ans[d, k - offs[d]]; scatter it back
+    to the request's lane of `out`."""
+    m = pp.shape[0]
+    db = dest.index_select(0, pp).clamp(0, n - 1).long()
+    k = _iota(m, pp.device)
+    out[pp.long()] = ans[db, (k - offs[db]).clamp(0, w - 1).long()]
 
 
 def _bin_pairs(vals, rows, n_dest: int, capacity: int, sentinel: int):
@@ -180,14 +216,20 @@ def _pack_prefix(flags, cap: int, *arrs):
     return tuple(a[:cap] for a in packed) + (hist[0] > cap,)
 
 
-def _exchange_pairs(mesh: Mesh, vals, rows, n_dest: int, capacity: int,
-                    sentinel: int):
-    """Bin and all_to_all (value, rowid) pairs in ONE collective: this
-    rank's flat (values, rowids) after the exchange, dead lanes
-    sentineled in values, and the rank-local bin overflow."""
+def _issue_pairs(mesh: Mesh, vals, rows, n_dest: int, capacity: int,
+                 sentinel: int):
+    """Bin (value, rowid) pairs and issue their all_to_all, ONE
+    collective: (its Pending, for _landed_pairs; the rank-local bin
+    overflow)."""
     vbins, rbins, ovf = _bin_pairs(vals, rows, n_dest, capacity, sentinel)
-    rec = mesh.all_to_all(torch.stack([vbins, rbins], 1))   # (n, 2, cap)
-    return rec[:, 0].reshape(-1), rec[:, 1].reshape(-1), ovf
+    return mesh.all_to_all(torch.stack([vbins, rbins], 1),
+                           async_op=True), ovf
+
+
+def _landed_pairs(rec):
+    """This rank's flat (values, rowids) of a received (n, 2, cap)
+    exchange, dead lanes sentineled in values."""
+    return rec[:, 0].reshape(-1), rec[:, 1].reshape(-1)
 
 
 def _heavy_digits(mesh: Mesh, rv, n: int, heavy_frac: float):
@@ -196,8 +238,9 @@ def _heavy_digits(mesh: Mesh, rv, n: int, heavy_frac: float):
     digit = torch.where(rv != RIGHT_SENTINEL, rv % n, n)
     ghist = mesh.all_reduce(_bincount(digit, n))
     total = ghist.sum().clamp_min(1)
-    # the reference's float32 product (python float x int32 array)
-    frac = torch.tensor(heavy_frac, dtype=torch.float32, device=rv.device)
+    # the reference's float32 product (python float x int32 array); a
+    # fill, not torch.tensor, whose host-to-device copy synchronizes
+    frac = torch.full((), heavy_frac, dtype=torch.float32, device=rv.device)
     return ghist > (frac * total).to(torch.int32)
 
 
@@ -259,13 +302,17 @@ def d_eq_mat(mesh: Mesh, i1: int, i2: int, null_flag: bool, colA, colB,
     out = compact(mat, pos)
     if not null_flag:
         return out, cnt, o1 | o2
-    v1sorted = torch.sort(torch.where(live, v1, LEFT_SENTINEL)).values
     v2s = torch.where(live, v2, RIGHT_SENTINEL)
     K = _chunk_count(w, bchunks)
     ck = w // K
+
+    def issue(k):
+        return mesh.all_gather(v2s[k * ck:(k + 1) * ck], async_op=True)
+    first = issue(0)                    # flies while v1 sorts
+    v1sorted = torch.sort(torch.where(live, v1, LEFT_SENTINEL)).values
     found = _false(mat.device)
-    for k in range(K):
-        v2c = mesh.all_gather(v2s[k * ck:(k + 1) * ck]).reshape(-1)
+    for g in _pipelined(issue, K, first):
+        v2c = g.reshape(-1)
         lo, hi = _searchsorted(v1sorted, v2c)
         found = found | ((hi > lo) & (v2c != RIGHT_SENTINEL)).any()
     return out, cnt, found, o1 | o2
@@ -286,8 +333,9 @@ def d_case1_probe(mesh: Mesh, heavy_frac: float, chunks: int, colA, colB,
     raises the overflow. ecap == 0 keeps the worst-case sizes.
 
     The left side is exchanged in K = `chunks` sub-exchanges, each probed
-    against the sorted right side as it lands; the pair multiset is the
-    same for every K."""
+    against the sorted right side as it lands: chunk 0 flies while the
+    right side sorts, chunk k+1 while chunk k probes. The pair multiset
+    is the same for every K."""
     n = mesh.size
     dev = lrows.device
     capL, capR = lrows.shape[0], rrows.shape[0]
@@ -300,21 +348,18 @@ def d_case1_probe(mesh: Mesh, heavy_frac: float, chunks: int, colA, colB,
     # right side first: exchange the light digits, broadcast the heavy
     rv_light = _mask_heavy(rv, heavy, n, RIGHT_SENTINEL, False)
     rcap = min(ecap, capR) if ecap else capR
-    rfv, rfr, rovf = _exchange_pairs(mesh, rv_light, rrows, n, rcap,
-                                     RIGHT_SENTINEL)
+    rx, rovf = _issue_pairs(mesh, rv_light, rrows, n, rcap, RIGHT_SENTINEL)
     rv_heavy = _mask_heavy(rv, heavy, n, RIGHT_SENTINEL, True)
     if ecap and ecap < capR:
         hv, hr, hovf = _pack_prefix(rv_heavy != RIGHT_SENTINEL, ecap,
                                     rv_heavy, rrows)
     else:
         hv, hr, hovf = rv_heavy, rrows, _false(dev)
-    rg = mesh.all_gather(torch.stack([hv, hr]))          # (n, 2, h)
-    R = torch.cat([rfv, rg[:, 0].reshape(-1)])
-    Rrow = torch.cat([rfr, rg[:, 1].reshape(-1)])
-    order = _stable_argsort(R)
-    rs = R.index_select(0, order)
+    hx = mesh.all_gather(torch.stack([hv, hr]), async_op=True)  # (n, 2, h)
 
-    # the left light rows in K sub-exchanges; the heavy left rows stay
+    # the left light rows in K sub-exchanges (the heavy left rows stay):
+    # chunk 0 is issued before the right side's sort and flies while it
+    # runs; chunk k+1 flies while chunk k probes
     lv_light = _mask_heavy(lv, heavy, n, LEFT_SENTINEL, False)
     lv_heavy = _mask_heavy(lv, heavy, n, LEFT_SENTINEL, True)
     K = max(min(chunks, capL), 1)
@@ -322,25 +367,39 @@ def d_case1_probe(mesh: Mesh, heavy_frac: float, chunks: int, colA, colB,
         K //= 2
     ck = capL // K
     lecap = min(max(ecap // K, 1), ck) if ecap else ck
-    segs, eovfs = [], [rovf, hovf]
-    for k in range(K):
+    eovfs = [rovf, hovf]
+
+    def issue(k):
         sl = slice(k * ck, (k + 1) * ck)
-        lfv, lfr, lovf = _exchange_pairs(mesh, lv_light[sl], lrows[sl], n,
-                                         lecap, LEFT_SENTINEL)
-        segs.append((lfv, lfr))
-        eovfs.append(lovf)
-    segs.append((lv_heavy, lrows))
-    los, cnts = [], []
-    for lfv, _lfr in segs:
+        pending, ovf = _issue_pairs(mesh, lv_light[sl], lrows[sl], n, lecap,
+                                    LEFT_SENTINEL)
+        eovfs.append(ovf)
+        return pending
+    first = issue(0)
+
+    rfv, rfr = _landed_pairs(rx.wait())
+    rg = hx.wait()
+    R = torch.cat([rfv, rg[:, 0].reshape(-1)])
+    Rrow = torch.cat([rfr, rg[:, 1].reshape(-1)])
+    order = _stable_argsort(R)
+    rs = R.index_select(0, order)
+
+    lrow_segs, los, cnts = [], [], []
+
+    def probe(lfv, lfr):
         lo_k, hi_k = _searchsorted(rs, lfv)
+        lrow_segs.append(lfr)
         los.append(lo_k)
         cnts.append(torch.where(lfv >= 0, hi_k - lo_k, 0))
+    for rec in _pipelined(issue, K, first):
+        probe(*_landed_pairs(rec))
+    probe(lv_heavy, lrows)
     off, cum, total = _counts_to_cum(torch.cat(cnts))
     eovf = torch.stack(eovfs).any().to(torch.int64)
     t64 = total.to(torch.int64)
     stats = torch.stack([-t64, t64, eovf])
-    return (torch.cat([s[1] for s in segs]), Rrow, order, torch.cat(los),
-            off, cum, total, stats)
+    return (torch.cat(lrow_segs), Rrow, order, torch.cat(los), off, cum,
+            total, stats)
 
 
 def d_case1_expand(out_cap: int, Lrow, Rrow, order, lo, off, cum):
@@ -374,9 +433,9 @@ def d_case2_probe(mesh: Mesh, full_row: int, col_full, mat, icnt,
     K = _chunk_count(capF, bchunks)
     ck = capF // K
     counts = torch.zeros(w, dtype=torch.int32, device=mat.device)
-    for k in range(K):
-        fs = torch.sort(mesh.all_gather(fv[k * ck:(k + 1) * ck])
-                        .reshape(-1)).values
+    for g in _pipelined(lambda k: mesh.all_gather(
+            fv[k * ck:(k + 1) * ck], async_op=True), K):
+        fs = torch.sort(g.reshape(-1)).values
         lo, hi = _searchsorted(fs, lv)
         counts += torch.where(lv >= 0, hi - lo, 0)
     off, cum, total = _counts_to_cum(counts)
@@ -402,9 +461,9 @@ def d_case2_expand(mesh: Mesh, out_cap: int, mat, lv, col_fresh, frows, fc,
     li_f = torch.zeros(out_cap, dtype=torch.int32, device=dev)
     fr_f = torch.zeros(out_cap, dtype=torch.int32, device=dev)
     running = off
-    for k in range(K):
-        g = mesh.all_gather(torch.stack([fv[k * ck:(k + 1) * ck],
-                                         frows[k * ck:(k + 1) * ck]]))
+    for g in _pipelined(lambda k: mesh.all_gather(torch.stack(
+            [fv[k * ck:(k + 1) * ck], frows[k * ck:(k + 1) * ck]]),
+            async_op=True), K):
         fv_c, frow_c = g[:, 0].reshape(-1), g[:, 1].reshape(-1)
         order_k = _stable_argsort(fv_c)
         lo_k, hi_k = _searchsorted(fv_c.index_select(0, order_k), lv)

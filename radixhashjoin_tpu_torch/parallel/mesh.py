@@ -12,6 +12,13 @@ first (all_reduce / all_gather).
 
 `calls` counts the collectives issued, by kind, so that a run can show
 how many a query took.
+
+`all_to_all` and `all_gather` take `async_op=True`: they then return a
+`Pending` whose `wait()` gives the received tensor, so a caller can
+compute while the collective is in flight (the pipelined chunk loops of
+dist_ops.py). On NCCL the collective runs on the process group's own
+stream and `wait()` makes the current stream wait for it (no host
+block); on gloo `wait()` blocks the host until the collective is done.
 """
 
 from __future__ import annotations
@@ -23,6 +30,28 @@ import torch.distributed as dist
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN}
+
+
+class Pending:
+    """An issued collective. `wait()` (once) gives its result. The
+    handle holds the collective's input and output tensors until then:
+    the caching allocator must not hand their memory to the compute
+    stream while the collective may still read or write it, whichever
+    way the process group tracks them (record_stream, or stashing them
+    in its work object under TORCH_NCCL_AVOID_RECORD_STREAMS). After
+    `wait()` the current stream is ordered after the collective, so
+    freeing them there is safe. A failed collective raises here."""
+
+    def __init__(self, work, result, keep):
+        self._work = work
+        self._result = result
+        self._keep = keep
+
+    def wait(self) -> torch.Tensor:
+        self._work.wait()
+        out = self._result()
+        self._keep = self._result = None
+        return out
 
 
 class Mesh:
@@ -44,22 +73,27 @@ class Mesh:
         dist.all_reduce(t, op=_OPS[op], group=self.group)
         return t
 
-    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+    def all_to_all(self, t: torch.Tensor, async_op: bool = False):
         """Row block d of t (dim 0 split evenly in `size`) goes to rank d;
-        row block s of the result came from rank s."""
+        row block s of the result came from rank s. With async_op, a
+        Pending of that result."""
         self.calls["all_to_all"] += 1
         t = t.contiguous()
         out = torch.empty_like(t)
-        dist.all_to_all_single(out, t, group=self.group)
-        return out
+        work = dist.all_to_all_single(out, t, group=self.group,
+                                      async_op=True)
+        pending = Pending(work, lambda: out, (t, out))
+        return pending if async_op else pending.wait()
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """(size, *t.shape): every rank's t, by rank."""
+    def all_gather(self, t: torch.Tensor, async_op: bool = False):
+        """(size, *t.shape): every rank's t, by rank. With async_op, a
+        Pending of that result."""
         self.calls["all_gather"] += 1
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(self.size)]
-        dist.all_gather(parts, t, group=self.group)
-        return torch.stack(parts)
+        work = dist.all_gather(parts, t, group=self.group, async_op=True)
+        pending = Pending(work, lambda: torch.stack(parts), (t, parts))
+        return pending if async_op else pending.wait()
 
     def broadcast_object(self, obj, src: int = 0):
         """A picklable host object from rank `src` to every rank."""

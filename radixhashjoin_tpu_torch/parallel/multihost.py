@@ -179,3 +179,23 @@ def run_ranks(target: Callable, n: int, args: Sequence = (), *,
                                  backend, threads)
     got = join_ranks(procs, results, n, timeout)
     return [got[r] for r in range(n)]
+
+
+def run_world(target: Callable, n: int, args: Sequence = (), *, device,
+              timeout: float = 1800):
+    """Rank 0's return value of target(mesh, *args) on n ranks of
+    `device` (a torch.device): n == 1 in this process, which joins a
+    world of one unless it is already in a world; else n spawned ranks,
+    one a card on cuda (NCCL), gloo on the CPU."""
+    device = torch.device(device)
+    if n > 1:
+        return run_ranks(target, n, args, device=device.type,
+                         timeout=timeout)[0]
+    joined = not dist.is_initialized()
+    if joined:
+        init_multihost(f"127.0.0.1:{free_port()}", 1, 0, device=device)
+    try:
+        return target(make_mesh(1), *args)
+    finally:
+        if joined:
+            shutdown()

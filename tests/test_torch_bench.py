@@ -64,7 +64,8 @@ from radixhashjoin_tpu_torch.utils import limbs
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MODULES = ("bench_scale", "bench", "bench_planner", "bench_microops")
+MODULES = ("bench_scale", "bench", "bench_planner", "bench_microops",
+           "bench_dist_scale", "scale_efficiency")
 
 
 def _line(q):
