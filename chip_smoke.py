@@ -14,7 +14,13 @@ Phases (any failure raises and exits non-zero; nothing is swallowed):
      library call computing the same function (where one exists) and its
      bound (bytes moved over 3.35 TB/s); the build and lookup through
      bench_tables (Zipf and uniform 2^26-row builds, shared-memory-size
-     tables, lookups into 2^20-, 2^18-, 48K- and 1024-entry tables); the
+     tables, lookups into 2^20-, 2^18-, 48K- and 1024-entry tables, the
+     fused double lookup rhj_table_gather2 into two 2^20-entry tables
+     beside two lookups and two index_selects); then the JAX package's
+     table variants at 2^24 rows (bench_tables.variant_rows: builds xla,
+     sorted, hier1024, hier2048, mxu; lookups xla, onehot, xla_sorted,
+     diffcum, hier, gather2), each exact against the plain version, timed
+     beside the hand kernel on the same inputs; the
      rank kernel on uniform, one-hot, sorted-run and all-dead digits and
      on phase 4c's 2-bin binning at 2^25 digits; the
      partition and the 18-bit radix sort built on the rank kernel against
@@ -25,7 +31,11 @@ Phases (any failure raises and exits non-zero; nothing is swallowed):
      phases 3b-3d and 4c use too): once as a subprocess, once in-process
      through models/engine.main; both must print the lines of the port's
      NumPy oracle (oracle.py), and the in-process run must go through
-     the build and lookup kernels;
+     the build and lookup kernels. Then the two planner faults the port
+     repaired, through the CLI as subprocesses started together: fault A
+     (a repeated case-3 edge after a fusion) under the default and
+     `--mesh 1` prints NULL NULL, fault B (a case-1 wipe) under
+     `--reorder-joins` prints 30, the oracle's lines;
   3b. the same catalog through `--no-batch` (the per-query executor):
      the 50 tree queries plus 20 queries the factorized wave does not
      plan (cycles, same-slot predicates, no joins), in two batches, as a
@@ -42,10 +52,14 @@ Phases (any failure raises and exits non-zero; nothing is swallowed):
      sort and --reorder-joins as subprocesses started together, then
      stage_group 1, 8 and 64, ftree_wave=False and defer_middle=False
      in-process with their dispatches and launches and a sync check;
-     every line equals the oracle's. Then native against Python load and
-     parse seconds (this catalog, and a star of phase 4's shape written
-     to files), and the A/B of warm walls: one round, 64-query rounds
-     and per-query ftree ops, in turns, ten runs each;
+     every line equals the oracle's. Then one ftree_scatter /
+     ftree_gather pair per table name (TABLE_PAIRS; "mxu", whose one-hot
+     grows with the table, on bench_scale's small-dimension star at 2^22
+     fact rows, the rest on the 70 queries), each exact, with its sync
+     check: 0 synchronizing calls inside a round. Then native against
+     Python load and parse seconds (this catalog, and a star of phase
+     4's shape written to files), and the A/B of warm walls: one round,
+     64-query rounds and per-query ftree ops, in turns, ten runs each;
   4. data scale through Engine.run_workload: a Zipf(1.1) fact of 2^27
      rows over 2^20 keys joined with a 2^20-row dimension, and a star of
      a 2^24-row fact with two 2^20-row dimensions, each against its
@@ -174,6 +188,15 @@ DIST_AB_PAIRS = 5
 
 # the factorized wave's kernels; the radix kernels run on the shootout
 WAVE_KERNELS = ("bincount", "gather")
+# a dense probe's kernels: the build and the fused double lookup
+PROBE_KERNELS = ("bincount", "gather2")
+# phase 3d: one (ftree_scatter, ftree_gather) pair per table name of
+# ops/tables.py besides the default ("auto", "auto"); MXU_STAR_ROWS: the
+# small-dimension star that "mxu" runs on
+TABLE_PAIRS = (("xla", "xla"), ("onehot", "onehot"), ("hier", "auto"),
+               ("sorted", "onehot"), ("hier_presorted", "xla"),
+               ("mxu", "auto"))
+MXU_STAR_ROWS = 1 << 22
 
 
 def _nvidia_smi() -> str:
@@ -203,9 +226,10 @@ def phase_kernels(dev):
     untimed edge shapes, then the radix kernels."""
     import torch
     from radixhashjoin_tpu_torch import bench_tables, kernels
-    from radixhashjoin_tpu_torch.ops.tables import (table_gather_torch,
+    from radixhashjoin_tpu_torch.ops.tables import (table_gather2_torch,
+                                                    table_gather_torch,
                                                     weighted_bincount_torch)
-    errs = {"bincount": 0, "gather": 0}
+    errs = {"bincount": 0, "gather": 0, "gather2": 0}
     timed = {}
     for row in bench_tables.run(dev, out=None):
         errs[row["kernel"]] = max(errs[row["kernel"]], row["max_abs_err"])
@@ -251,7 +275,19 @@ def phase_kernels(dev):
                           dtype=torch.int32)
         check("gather", kernels.table_gather_cuda(t, k),
               table_gather_torch(t, k), f"n={n} bins={b}")
+        # the fused double lookup on the same keys, and on a view at an
+        # element offset (its scalar head)
+        tb = table[-b:].contiguous()
+        for kk in (k, k[1:]):
+            check("gather2", torch.cat(kernels.table_gather2_cuda(t, tb, kk)),
+                  torch.cat(table_gather2_torch(t, tb, kk)),
+                  f"n={kk.numel()} bins={b}")
     timed.update(_phase_radix_kernels(dev, gen, errs))
+    t0 = time.perf_counter()
+    variants = bench_tables.variant_rows(dev, out=sys.stdout)
+    print(json.dumps({"phase": "table_variants", "rows": len(variants),
+                      "all_exact": all(r["exact"] for r in variants),
+                      "seconds": time.perf_counter() - t0}))
     return timed, errs
 
 
@@ -438,6 +474,63 @@ def phase_cli(dev):
         "oracle_s": oracle_s, "counters": counters,
         "launches": launches, "device_profile": profile}))
     return launches
+
+
+# the two planner faults the port repaired (tests/test_torch_faults.py):
+# relations, the query, the CLI flags, the oracle's line
+FAULTS = {
+    "a_default": ([[[1, 2], [5, 6]], [[1, 2], [6, 5]]],
+                  "0 1|0.0=1.0&0.1=1.1&0.1=1.1|0.0 1.1", [], "NULL NULL"),
+    "a_mesh1": ([[[1, 2], [5, 6]], [[1, 2], [6, 5]]],
+                "0 1|0.0=1.0&0.1=1.1&0.1=1.1|0.0 1.1", ["--mesh", "1"],
+                "NULL NULL"),
+    "b_reorder_joins": ([[[1, 2], [3, 4]], [[1, 5], [7, 8]],
+                         [[10, 20], [30, 40]]],
+                        "0 1 2|0.0=1.0&2.0=2.0|2.0", ["--reorder-joins"],
+                        "30"),
+}
+
+
+def phase_faults(dev):
+    """Faults A and B through the CLI on `dev`, one subprocess each,
+    started together: each must print the oracle's line (which the port's
+    oracle computes here too)."""
+    from radixhashjoin_tpu_torch.oracle import OracleExecutor, format_result
+    from radixhashjoin_tpu_torch.storage import Relation
+    from radixhashjoin_tpu_torch.workload import parse_query
+    procs, streams = {}, {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (cols, query, flags, want) in FAULTS.items():
+            rels = [[np.asarray(c, np.uint64) for c in cs] for cs in cols]
+            q = parse_query(query)
+            oracle = format_result(OracleExecutor(
+                [Relation(r) for r in rels]).execute(q), len(q.projections))
+            if oracle != want:
+                raise AssertionError(f"fault {name}: oracle {oracle!r}")
+            os.makedirs(os.path.join(tmp, name))
+            paths = _write_catalog(os.path.join(tmp, name), rels)
+            streams[name] = "\n".join(paths + ["Done", query, "F"]) + "\n"
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "radixhashjoin_tpu_torch", "--device",
+                 dev.type, *flags], stdin=subprocess.PIPE,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                cwd=REPO)
+        got = {name: p.communicate(streams[name], timeout=600)
+               for name, p in procs.items()}
+    lines = {}
+    for name, (out, err) in got.items():
+        if procs[name].returncode != 0:
+            raise AssertionError(f"fault {name}: exit "
+                                 f"{procs[name].returncode}:\n{err[-4000:]}")
+        lines[name] = out.splitlines()
+        if lines[name] != [FAULTS[name][3]]:
+            raise AssertionError(f"fault {name}: printed {lines[name]}, "
+                                 f"the oracle {FAULTS[name][3]!r}")
+    print(json.dumps({"phase": "faults", "lines": lines,
+                      "flags": {k: v[2] for k, v in FAULTS.items()},
+                      "lines_equal_oracle": True,
+                      "seconds": time.perf_counter() - t0}))
 
 
 def _write_catalog(tmp, rels):
@@ -793,6 +886,8 @@ def phase_settings_cli(dev):
             row["sync_check_stage_group8"] = _sync_check(
                 eng, lambda: eng.run_workload(batches))
         print(json.dumps(row))
+        del engines
+        add(_table_pairs(dev, paths, batches, want))
 
         # the A/B: warm walls, one round against 64-query rounds and
         # per-query ftree ops, in turns
@@ -843,6 +938,55 @@ def phase_settings_cli(dev):
     return total
 
 
+def _table_pairs(dev, paths, batches, want):
+    """One ftree_scatter / ftree_gather pair per table name (TABLE_PAIRS),
+    in-process: the 70 queries (the catalog at `paths`, the oracle's lines
+    `want`) under each pair but "mxu", which builds a one-hot of every
+    row against every bin of the wave's table (~2^24 bins here) and runs
+    on bench_scale's small-dimension star instead (2 x 1024 bins),
+    against its closed form. Each run's launches counted from 0, its
+    counters, and on the card the sync check of a warm run. Returns the
+    launches, summed."""
+    from radixhashjoin_tpu_torch import bench_scale, kernels
+    from radixhashjoin_tpu_torch.config import EngineConfig
+    from radixhashjoin_tpu_torch.models.engine import Engine
+    total = {k: 0 for k in kernels.LAUNCHES}
+    runs = {}
+    for scatter, gather in TABLE_PAIRS:
+        cfg = EngineConfig(ftree_scatter=scatter, ftree_gather=gather)
+        if scatter == "mxu":
+            case = bench_scale.star(MXU_STAR_ROWS, np.random.default_rng(0),
+                                    bench_scale.SMALL_DIM_KEYS)
+            eng = Engine(case.rels, cfg, device=dev)
+            work, expect = [[case.query]], case.expected
+        else:
+            eng = Engine.from_paths(paths, cfg, device=dev)
+            work, expect = batches, want
+        t0 = time.perf_counter()
+        got, launches = kernels.counted(lambda: eng.run_workload(work))
+        first_s = time.perf_counter() - t0
+        if got != expect:
+            raise AssertionError(f"tables {scatter}/{gather}: lines differ "
+                                 f"from the oracle's")
+        if (dev.type == "cuda" and (scatter, gather) == ("onehot", "onehot")
+                and min(launches[k] for k in WAVE_KERNELS) == 0):
+            raise AssertionError(f"tables onehot skipped a kernel: "
+                                 f"{launches}")
+        for k in total:
+            total[k] += launches[k]
+        run = {"workload": "small_dim_star" if scatter == "mxu"
+               else "70_queries", "first_s": first_s, "launches": launches,
+               "ftree_queries": eng.batch_executor.counters["ftree_queries"]}
+        if dev.type == "cuda":
+            run["sync_check"] = _sync_check(eng,
+                                            lambda: eng.run_workload(work))
+        runs[f"{scatter}/{gather}"] = run
+        del eng
+    print(json.dumps({"phase": "settings_tables", "lines_equal_oracle": True,
+                      "runs": runs}))
+    return total
+
+
 # ---- phase 4: data scale ----
 
 def _scale_run(name, rels, q, expected, n_tuples, dev):
@@ -885,6 +1029,7 @@ def _scale_run(name, rels, q, expected, n_tuples, dev):
 # the __global__ functions of csrc/ behind each wrapper's launch count
 CSRC_KERNELS = {"bincount": ("bincount_smem_kernel", "bincount_cached_kernel"),
                 "gather": ("gather_kernel",),
+                "gather2": ("gather2_kernel",),
                 "radix_hist": ("radix_hist_kernel",),
                 "rank_hist": ("rank_hist_kernel",)}
 
@@ -1096,8 +1241,10 @@ def _batch_fallback_run(name, rels, q, expected, n_tuples, dev, config,
             raise AssertionError(f"{name}: not on the materialized "
                                  f"fallback: {counters}")
         grew = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        # the build, and lookups: a dense probe's are one gather2 launch
         if (dev.type == "cuda" and dense
-                and min(grew[k] for k in WAVE_KERNELS) == 0):
+                and (grew["bincount"] == 0
+                     or grew["gather"] + grew["gather2"] == 0)):
             raise AssertionError(f"{name}: a kernel was not launched: "
                                  f"{grew}")
         stage_ops = list(rounds)
@@ -1593,8 +1740,14 @@ def phase_bench(dev, chain_rows=CHAIN_ROWS, scale_argv=BENCH_SCALE_ARGV,
     if names != BENCH_SCALE_METRICS:
         raise AssertionError(f"bench_scale metrics {sorted(names)}")
     for ln in lines:
-        keys = (("rank_hist",) if ln["metric"].startswith("skewaware")
-                else WAVE_KERNELS)
+        if ln["metric"].startswith("skewaware"):
+            keys = ("rank_hist",)
+        elif ln["metric"].startswith("dense_probe"):
+            keys = PROBE_KERNELS
+        elif ln.get("table_impl") == "xla":
+            keys = ()            # the library scatter and gather
+        else:
+            keys = WAVE_KERNELS
         _add_launches(ln["metric"], ln["launches"], keys, dev, total)
 
     # the chain: the CLI's --zipf-only --chain-rows data at this row count
@@ -1864,6 +2017,7 @@ def main() -> int:
                                 if "Used" in ln or "spill" in ln]}))
     timed, errs = phase_kernels(dev)
     launches = phase_cli(dev)
+    phase_faults(dev)
     default_lines = phase_fallback_cli(dev)
     launches_settings = phase_settings_cli(dev)
     _lines, dist = phase_scale(dev)
@@ -1893,6 +2047,9 @@ def main() -> int:
                 for k in launches}
     launches_dist = {k: launches_dist[k] + launches_bench[k]
                      + launches_pipe[k] for k in launches_dist}
+    if launches["gather2"] == 0:
+        raise AssertionError(f"the main path skipped the fused double "
+                             f"lookup: {launches}")
     for pkg in ("jax", "radixhashjoin_tpu"):
         if pkg in sys.modules:
             raise AssertionError(f"the port's run imported {pkg}")
@@ -1903,6 +2060,8 @@ def main() -> int:
          "radixhashjoin_tpu/ops/tables.py:283", launches),
         ("table_gather_cuda", "gather", tables,
          "radixhashjoin_tpu/ops/tables.py:564", launches),
+        ("table_gather2_cuda", "gather2", tables,
+         "radixhashjoin_tpu/ops/tables.py:409", launches),
         ("radix_histogram_cuda", "radix_hist", radix,
          "radixhashjoin_tpu/ops/pallas_radix.py:55", launches_radix),
         ("rank_hist_cuda", "rank_hist", radix,

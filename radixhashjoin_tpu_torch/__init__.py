@@ -13,9 +13,9 @@ and run as ONE level-batched message-passing wave (ops/factorized.py);
 the rest run as materialized stage ops of the same round (ops/stage.py)
 or, on the sort backend, through the per-op path. The build and lookup
 kernels live in csrc/tables.cu, and SUMs fold exactly in int64
-(utils/limbs.py). The per-query executor (models/executor.py) and the
-radix kernels of csrc/radix.cu are ported too. Whatever needs code that
-is not ported yet raises NotImplementedError naming ROADMAP.md.
+(utils/limbs.py). The per-query executor (models/executor.py), the
+radix kernels of csrc/radix.cu, the distributed layer (parallel/) and
+every table variant of the JAX package's ops/tables.py are ported too.
 
 This package imports neither jax nor radixhashjoin_tpu: its host
 modules (config, storage, workload, oracle) are its own, each naming

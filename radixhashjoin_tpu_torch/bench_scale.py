@@ -85,7 +85,6 @@ from .config import EngineConfig
 from .models import device_catalog
 from .models.engine import Engine, resolve_device
 from .ops.join_dense import dense_probe
-from .ops.tables import check_impl
 from .storage import INT32_MAX, Relation
 from .utils.profiling import hbm_bytes_per_s
 from .workload import FilterPred, JoinPred, Projection, Query
@@ -489,10 +488,10 @@ def main(argv: Optional[Sequence[str]] = None,
                         "on cuda, 1 on the CPU)")
     p.add_argument("--skew-rows", type=int, default=1 << 16,
                    help="rows for the skew-aware distributed config")
-    p.add_argument("--impl", default="auto",
-                   help="table kernels of the small-dim star join: auto | "
-                        "onehot (the reference's xla and both are not "
-                        "ported)")
+    p.add_argument("--impl", default="both",
+                   help="table kernels of the small-dim star join: xla | "
+                        "auto | both (one line each), or any ftree_scatter "
+                        "/ ftree_gather name")
     p.add_argument("--zipf-engine", action="store_true",
                    help="BASELINE config 4: Zipf(1.1) join + SUM through "
                         "the engine")
@@ -517,9 +516,8 @@ def main(argv: Optional[Sequence[str]] = None,
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = p.parse_args(argv)
     try:
-        check_impl(args.impl)
         dev = resolve_device(args.device)
-    except (NotImplementedError, RuntimeError) as e:
+    except RuntimeError as e:
         print(f"bench_scale: {e}", file=sys.stderr)
         return 2
     if args.zipf_only:
@@ -538,13 +536,18 @@ def main(argv: Optional[Sequence[str]] = None,
                   fact_rows=n, dim_rows=NARROW_DOMAIN, domain=NARROW_DOMAIN)
         free_memory(dev)
         nf = min(n, STAR_MAX_ROWS)
-        for metric, n_keys, cfg in (
-                ("star_join_engine_tuples_per_s", N_KEYS, {}),
-                ("star_join_smalldim_engine_tuples_per_s", SMALL_DIM_KEYS,
-                 {"ftree_scatter": args.impl, "ftree_gather": args.impl})):
+        impls = ["xla", "auto"] if args.impl == "both" else [args.impl]
+        big = star(nf, rng, N_KEYS)
+        small = star(nf, rng, SMALL_DIM_KEYS)   # one case for every impl
+        star_cfgs = [("star_join_engine_tuples_per_s", big, N_KEYS, {})] + [
+            ("star_join_smalldim_engine_tuples_per_s", small, SMALL_DIM_KEYS,
+             {"ftree_scatter": impl, "ftree_gather": impl})
+            for impl in impls]
+        del big, small
+        for metric, case, n_keys, cfg in star_cfgs:
             got, seconds, counters, launches = run_engine(
-                star(nf, rng, n_keys), EngineConfig(**cfg), dev)
-            extra = {"table_impl": args.impl} if cfg else {}
+                case, EngineConfig(**cfg), dev)
+            extra = {"table_impl": cfg["ftree_scatter"]} if cfg else {}
             _emit(out, {"metric": metric, "fact_rows": nf,
                         "dim_rows": n_keys, "n_joins": 2, **extra,
                         "factorized": counters["ftree_queries"] > 0,

@@ -1,8 +1,9 @@
 """Build and lookup kernels of csrc/tables.cu on the card, at the shapes
-the main path gives them (counterpart of scripts/bench_tables.py and
+the main path gives them, and the JAX package's other table variants
+beside them (counterpart of scripts/bench_tables.py and
 scripts/bench_gather.py, the JAX package's message-table shootouts).
 
-    python -m radixhashjoin_tpu_torch.bench_tables
+    python -m radixhashjoin_tpu_torch.bench_tables [--variants-only]
 
 For each case, one JSON line: the kernel first held element-exact
 (torch.equal) against its plain version, then CUDA-event means (WARMUP
@@ -15,7 +16,19 @@ out-of-range rows were sent to a spare bin before timing; the faster of
 output written once) over the card's 3.35 TB/s. A lookup line also gives
 `sector_gbps`: one 32-byte L2 sector per key over `ms`, the L2-to-SM
 traffic of its random table reads, which bounds a table that lives in
-L2 when it exceeds the DRAM bound.
+L2 when it exceeds the DRAM bound. The fused double lookup (`gather2`)
+also gives `two_gathers_ms`, two launches of the lookup kernel on the
+same keys.
+
+Then the variants (`variant_rows`), at JAX's shootout size of 2^24 rows:
+builds `xla`, `sorted`, `hier1024`, `hier2048` (sub-table widths) and
+`mxu` (4096 bins only) into 4096 and 2^20 bins; lookups `xla` and
+`onehot` into 8192 entries, and into 2^20 entries `xla`, `gather2` on
+unsorted keys and `xla_sorted`, `diffcum`, `hier` on sorted ones. Each
+row is held exact (torch.equal) against the plain version first, then
+gives its `ms`, its `bound_ms` and `hand_ms`, the hand kernel's time on
+the same inputs (for `gather2`, two lookup launches). On the CPU the
+rows are only checked, every time "not measured".
 
 Needs one CUDA card; without one it exits 2.
 """
@@ -31,7 +44,9 @@ import torch
 
 from . import kernels
 from .bench_kernels import time_ms
-from .ops.tables import table_gather_torch, weighted_bincount_torch
+from .ops import tables
+from .ops.tables import (table_gather2_torch, table_gather_torch,
+                         weighted_bincount_torch)
 
 HBM_BYTES_PER_S = 3.35e12
 SECTOR_BYTES = 32
@@ -39,6 +54,8 @@ SMEM_BINS = 48 * 1024        # csrc/tables.cu kSmemMaxBins
 CACHE_SLOTS = 8192           # csrc/tables.cu kSlots
 ITERS = 20
 LOG_ROWS = 26
+VARIANT_LOG_ROWS = 24
+VARIANT_ITERS = 5
 
 
 def zipf_keys(gen: torch.Generator, n: int, n_keys: int,
@@ -122,6 +139,29 @@ def gather_cases(dev: torch.device, gen: torch.Generator,
            "args": (table, keys)}
 
 
+def gather2_cases(dev: torch.device, gen: torch.Generator,
+                  log_rows: int = LOG_ROWS) -> Iterator[dict]:
+    """The fused double lookup at the main lookup's shape: 2^26 unsorted
+    keys (a few out of range) into two 2^20-entry tables."""
+    bins, n = 1 << 20, 1 << log_rows
+    ta, tb = (torch.randint(-2**31, 2**31 - 1, (bins,), generator=gen,
+                            device=dev, dtype=torch.int32) for _ in "ab")
+    keys = torch.randint(-1000, bins + 1000, (n,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    yield {"label": f"unsorted n=2^{log_rows} bins=2^20", "main": True,
+           "args": (ta, tb, keys)}
+
+
+def _flat(x) -> torch.Tensor:
+    """A result as one tensor (a pair of lookups concatenated)."""
+    return torch.cat(x) if isinstance(x, tuple) else x
+
+
+def _shown(bins: int) -> str:
+    log = bins.bit_length() - 1
+    return f"2^{log}" if bins == 1 << log and bins > 8192 else str(bins)
+
+
 def _bincount_library(idx, w, n_bins) -> Callable[[], torch.Tensor]:
     spare = torch.where((idx >= 0) & (idx < n_bins), idx, n_bins)
 
@@ -151,6 +191,18 @@ def measure(kind: str, case: dict, iters: int = ITERS) -> dict:
             return weighted_bincount_torch(idx, w, bins)
         library = {"index_add_": _bincount_library(idx, w, bins)}
         n_bytes = idx.numel() * 8 + bins * 4
+    elif kind == "gather2":
+        ta, tb, keys = args
+
+        def kernel():
+            return kernels.table_gather2_cuda(ta, tb, keys)
+
+        def plain():
+            return table_gather2_torch(ta, tb, keys)
+        ca, cb = (_gather_library(t, keys)["index_select"] for t in (ta, tb))
+        library = {"index_select_x2": lambda: (ca(), cb())}
+        n = keys.numel()
+        n_bytes = n * 12 + 2 * min(ta.numel(), n) * 4
     else:
         table, keys = args
 
@@ -162,8 +214,8 @@ def measure(kind: str, case: dict, iters: int = ITERS) -> dict:
         library = _gather_library(table, keys)
         n = keys.numel()
         n_bytes = n * 8 + min(table.numel(), n) * 4
-    want = plain()
-    got = kernel()
+    want = _flat(plain())
+    got = _flat(kernel())
     torch.cuda.synchronize()
     err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
     if not torch.equal(got, want):
@@ -182,6 +234,10 @@ def measure(kind: str, case: dict, iters: int = ITERS) -> dict:
     row["share_of_bound"] = row["bound_ms"] / row["ms"]
     if kind == "gather":
         row["sector_gbps"] = keys.numel() * SECTOR_BYTES / row["ms"] / 1e6
+    if kind == "gather2":
+        row["two_gathers_ms"] = time_ms(
+            lambda: (kernels.table_gather_cuda(ta, keys),
+                     kernels.table_gather_cuda(tb, keys)), iters)
     return row
 
 
@@ -191,7 +247,8 @@ def run(dev: torch.device, out: Optional[TextIO] = sys.stdout,
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
     for kind, cases in (("bincount", build_cases(dev, gen, log_rows)),
-                        ("gather", gather_cases(dev, gen, log_rows))):
+                        ("gather", gather_cases(dev, gen, log_rows)),
+                        ("gather2", gather2_cases(dev, gen, log_rows))):
         for case in cases:
             row = measure(kind, case)
             row["main"] = bool(case.get("main"))
@@ -199,6 +256,103 @@ def run(dev: torch.device, out: Optional[TextIO] = sys.stdout,
             if out is not None:
                 print(json.dumps(row), file=out, flush=True)
             del case
+    return rows
+
+
+def _variants(dev: torch.device, gen: torch.Generator, log_rows: int
+              ) -> Iterator[tuple]:
+    """(op, impl, case label, variant fn, plain fn, hand kernel fn, bytes)
+    of every variant row, one shape's inputs at a time."""
+    n = 1 << log_rows
+
+    def randint(lo, hi, size):
+        return torch.randint(lo, hi, (size,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    for bins in (4096, 1 << 20):
+        # per-bin totals stay < 2**31 (JAX's shootout weights)
+        wmax = max(min((1 << 31) // max(4 * n // bins, 1), 1000), 1)
+        idx, w = randint(0, bins, n), randint(0, wmax, n)
+        label = f"n=2^{log_rows} bins={_shown(bins)}"
+        fns = {"xla": tables.weighted_bincount_xla,
+               "sorted": tables.weighted_bincount_sorted,
+               "hier1024": lambda i, ww, b: tables.weighted_bincount_hier(
+                   i, ww, b, sub_width=1024),
+               "hier2048": lambda i, ww, b: tables.weighted_bincount_hier(
+                   i, ww, b, sub_width=2048)}
+        if bins <= tables.MXU_SCATTER_MAX_BINS:
+            fns["mxu"] = tables.weighted_bincount_mxu
+        for impl, fn in fns.items():
+            yield ("build", impl, label,
+                   lambda fn=fn: fn(idx, w, bins),
+                   lambda: weighted_bincount_torch(idx, w, bins),
+                   lambda: kernels.weighted_bincount_cuda(idx, w, bins),
+                   n * 8 + bins * 4)
+        del idx, w
+    bins = tables.ONEHOT_GATHER_MAX_BINS
+    table, keys = randint(-2**31, 2**31 - 1, bins), randint(0, bins, n)
+    for impl, fn in (("xla", tables.table_gather_xla),
+                     ("onehot", tables.table_gather_onehot)):
+        yield ("lookup", impl, f"unsorted n=2^{log_rows} bins={bins}",
+               lambda fn=fn: fn(table, keys),
+               lambda: table_gather_torch(table, keys),
+               lambda: kernels.table_gather_cuda(table, keys),
+               n * 8 + min(bins, n) * 4)
+    bins = 1 << 20
+    table, tb = randint(-2**31, 2**31 - 1, bins), randint(0, 1 << 30, bins)
+    keys = randint(0, bins, n)
+    label = f"unsorted n=2^{log_rows} bins=2^20"
+    yield ("lookup", "xla", label,
+           lambda: tables.table_gather_xla(table, keys),
+           lambda: table_gather_torch(table, keys),
+           lambda: kernels.table_gather_cuda(table, keys),
+           n * 8 + min(bins, n) * 4)
+    yield ("lookup", "gather2", label,
+           lambda: tables.table_gather2(table, tb, keys),
+           lambda: table_gather2_torch(table, tb, keys),
+           lambda: (kernels.table_gather_cuda(table, keys),
+                    kernels.table_gather_cuda(tb, keys)),
+           n * 12 + 2 * min(bins, n) * 4)
+    sk = torch.sort(keys).values
+    del keys
+    for impl, fn in (("xla_sorted", tables.table_gather_xla),
+                     ("diffcum", tables.table_gather_diffcum),
+                     ("hier", tables.table_gather_hier)):
+        yield ("lookup", impl, f"sorted n=2^{log_rows} bins=2^20",
+               lambda fn=fn: fn(table, sk),
+               lambda: table_gather_torch(table, sk),
+               lambda: kernels.table_gather_cuda(table, sk),
+               n * 8 + min(bins, n) * 4)
+
+
+def variant_rows(dev: torch.device, log_rows: int = VARIANT_LOG_ROWS,
+                 iters: int = VARIANT_ITERS,
+                 out: Optional[TextIO] = sys.stdout) -> List[dict]:
+    """The JAX package's table variants (see the module doc): each held
+    exact against the plain version, then timed beside the hand kernel on
+    the card; on the CPU only checked. Returns the rows (also printed)."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    on_card = dev.type == "cuda"
+    rows = []
+    for op, impl, label, fn, plain, hand, n_bytes in _variants(
+            dev, gen, log_rows):
+        want, got = _flat(plain()), _flat(fn())
+        err = int((got.long() - want.long()).abs().max()) if got.numel() \
+            else 0
+        if not torch.equal(got, want):
+            raise AssertionError(f"{op} {impl} {label}: != plain version "
+                                 f"(max abs err {err})")
+        del want, got
+        row = {"kernel": "variant", "op": op, "impl": impl, "case": label,
+               "exact": True, "max_abs_err": err,
+               "ms": time_ms(fn, iters, warmup=1) if on_card
+               else "not measured",
+               "hand_ms": time_ms(hand, ITERS) if on_card
+               else "not measured",
+               "bound_ms": bound_ms(n_bytes), "bound_by": "bytes"}
+        rows.append(row)
+        if out is not None:
+            print(json.dumps(row), file=out, flush=True)
     return rows
 
 
@@ -210,6 +364,10 @@ def main(argv: Optional[Sequence[str]] = None,
                     "per case")
     p.add_argument("--log-rows", type=int, default=LOG_ROWS,
                    help="rows of the largest cases (others: 4x fewer)")
+    p.add_argument("--variant-log-rows", type=int, default=VARIANT_LOG_ROWS,
+                   help="rows of the variant rows")
+    p.add_argument("--variants-only", action="store_true",
+                   help="only the variant rows")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_tables: needs a CUDA card", file=sys.stderr)
@@ -221,7 +379,9 @@ def main(argv: Optional[Sequence[str]] = None,
                       "ptxas": [ln.strip() for ln in built["log"].splitlines()
                                 if "Used" in ln or "spill" in ln]}),
           file=out, flush=True)
-    run(dev, out, args.log_rows)
+    if not args.variants_only:
+        run(dev, out, args.log_rows)
+    variant_rows(dev, args.variant_log_rows, out=out)
     return 0
 
 

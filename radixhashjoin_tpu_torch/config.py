@@ -19,8 +19,15 @@ class EngineConfig:
     pad_base: int = 2
 
     # --- factorized message-table kernels (ops/tables.py) ---
-    # "auto" and "onehot" run the hand-written CUDA kernels on a CUDA
-    # device and their plain PyTorch versions on the CPU.
+    # The JAX package's names, each running JAX's algorithm:
+    # "auto" / "onehot": the hand-written kernels of csrc/tables.cu on a
+    #   CUDA device, their plain PyTorch versions on the CPU;
+    # ftree_scatter "mxu": one-hot x 7-bit weight limbs (int8 matmul);
+    #   "hier": sort + blocked one-hot sub-tables + window adds (huge-node
+    #   windows take "hier_presorted" too: the same without the sort);
+    #   "sorted": carrying sort + boundary differences;
+    # any other name ("xla"): the library scatter / gather (index_add_,
+    #   index_select), as JAX falls through to XLA's engines.
     ftree_scatter: str = "auto"
     ftree_gather: str = "auto"
 

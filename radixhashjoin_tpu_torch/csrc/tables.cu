@@ -3,13 +3,14 @@
 // The factorized wave (ops/factorized.py), the dense probes
 // (ops/join_dense.py) and the fused terminal joins (ops/terminal.py)
 // spend their data-sized work in two primitives: a weighted bincount that
-// builds a message table, and a gather that looks it up. Both are plain C
-// entry points, bound with ctypes by kernels.py; every pointer is a device
-// pointer owned by a PyTorch tensor, every launch goes on the caller's
-// stream, nothing here allocates or synchronizes, and each entry returns
-// cudaGetLastError() so a refused launch surfaces in the wrapper instead
-// of vanishing. Device attributes and occupancies are read once per
-// device and kept in a static (neither call synchronizes).
+// builds a message table, and a gather that looks it up (the dense probe
+// looks two tables up with the same keys: a fused double gather). Each is
+// a plain C entry point, bound with ctypes by kernels.py; every pointer is
+// a device pointer owned by a PyTorch tensor, every launch goes on the
+// caller's stream, nothing here allocates or synchronizes, and each entry
+// returns cudaGetLastError() so a refused launch surfaces in the wrapper
+// instead of vanishing. Device attributes and occupancies are read once per
+// device and kept in a static (no call synchronizes).
 //
 // rhj_weighted_bincount — replaces the Pallas kernel
 //   radixhashjoin_tpu/ops/tables.py:283 weighted_bincount_onehot
@@ -72,6 +73,20 @@
 //     covers past 2^31 blocks): a persistent one measured slower.
 //   Staging tables of up to 48K entries in shared memory was measured and
 //   left out: L1 already holds them, and the staged kernel was no faster.
+//
+// rhj_table_gather2 — replaces the fused double lookup of
+//   radixhashjoin_tpu/ops/tables.py:409 table_gather2 (an XLA one-hot
+//   matmul of both tables' bytes, not a Pallas kernel). oa[i] = a[keys[i]]
+//   and ob[i] = b[keys[i]] for 0 <= keys[i] < n_bins, else 0: the dense
+//   probe's count and offset tables, looked up with one read of the keys.
+//   Bound on this card: the streaming read of the keys and write of both
+//   outputs (12 bytes a key) for tables L1 holds; else the random table
+//   reads through L2. Design: the lookup's kernel (the same int4 key loads
+//   and stores at the keys' offset within 16 bytes) over ONE table of
+//   (a, b) pairs, which the wrapper interleaves: a key's two values share
+//   one 8-byte read and one 32-byte sector. Two separate tables take two
+//   sectors a key, and measured 1.77x slower at 2^26 keys into 2^20-entry
+//   tables (L2-resident), no faster than two lookups (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -238,6 +253,62 @@ __global__ void __launch_bounds__(kGatherThreads)
     out[tail + gtid] = lookup(t, n_bins, keys[tail + gtid]);
 }
 
+__device__ __forceinline__ int2 lookup_pair(const int2* __restrict__ t,
+                                             int n_bins, int k) {
+  return (unsigned)k < (unsigned)n_bins ? __ldg(t + k) : make_int2(0, 0);
+}
+
+// keys + head, oa + head and ob + head are 16-byte aligned; head <= 3,
+// head <= n. t holds n_bins (a, b) pairs.
+__global__ void __launch_bounds__(kGatherThreads)
+    gather2_kernel(const int2* __restrict__ t, int n_bins,
+                   const int* __restrict__ keys, long long n, int head,
+                   int* __restrict__ oa, int* __restrict__ ob) {
+  const long long gtid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  if (gtid < head) {
+    const int2 r = lookup_pair(t, n_bins, keys[gtid]);
+    oa[gtid] = r.x;
+    ob[gtid] = r.y;
+  }
+  const long long n4 = (n - head) / 4;
+  const int4* k4 = reinterpret_cast<const int4*>(keys + head);
+  int4* a4 = reinterpret_cast<int4*>(oa + head);
+  int4* b4 = reinterpret_cast<int4*>(ob + head);
+  for (long long v = gtid; v < n4; v += kGatherVecs * stride) {
+    int4 k[kGatherVecs];
+    int2 r[kGatherVecs][4];
+#pragma unroll
+    for (int j = 0; j < kGatherVecs; ++j) {
+      const long long vj = v + j * stride;
+      k[j] = vj < n4 ? __ldcs(k4 + vj) : make_int4(-1, -1, -1, -1);
+    }
+#pragma unroll
+    for (int j = 0; j < kGatherVecs; ++j) {
+      r[j][0] = lookup_pair(t, n_bins, k[j].x);
+      r[j][1] = lookup_pair(t, n_bins, k[j].y);
+      r[j][2] = lookup_pair(t, n_bins, k[j].z);
+      r[j][3] = lookup_pair(t, n_bins, k[j].w);
+    }
+#pragma unroll
+    for (int j = 0; j < kGatherVecs; ++j) {
+      const long long vj = v + j * stride;
+      if (vj < n4) {
+        __stcs(a4 + vj, make_int4(r[j][0].x, r[j][1].x, r[j][2].x,
+                                  r[j][3].x));
+        __stcs(b4 + vj, make_int4(r[j][0].y, r[j][1].y, r[j][2].y,
+                                  r[j][3].y));
+      }
+    }
+  }
+  const long long tail = head + n4 * 4;
+  if (gtid < n - tail) {
+    const int2 r = lookup_pair(t, n_bins, keys[tail + gtid]);
+    oa[tail + gtid] = r.x;
+    ob[tail + gtid] = r.y;
+  }
+}
+
 // ---- launch configuration, read once per device ----
 
 struct Device {
@@ -367,5 +438,26 @@ extern "C" int rhj_table_gather(const int* table, int n_bins,
       ceil_div(n, kGatherThreads * 4LL * kGatherVecs), kMaxGridBlocks);
   gather_kernel<<<blocks, kGatherThreads, 0, s>>>(table, n_bins, keys, n,
                                                   (int)head, out);
+  return (int)cudaGetLastError();
+}
+
+// n >= 1, n_bins >= 1; pairs holds n_bins (a, b) int pairs, 8-byte
+// aligned; oa and ob have the same address modulo 16 as keys.
+extern "C" int rhj_table_gather2(const int* pairs, int n_bins,
+                                 const int* keys, long long n, int* oa,
+                                 int* ob, int /*sm_count*/, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uintptr_t ka = reinterpret_cast<uintptr_t>(keys);
+  if ((reinterpret_cast<uintptr_t>(pairs) & 7) != 0 || (ka & 3) != 0 ||
+      (ka & 15) != (reinterpret_cast<uintptr_t>(oa) & 15) ||
+      (ka & 15) != (reinterpret_cast<uintptr_t>(ob) & 15))
+    return (int)cudaErrorInvalidValue;
+  long long head = (long long)((16 - (ka & 15)) & 15) / 4;
+  if (head > n) head = n;
+  const int blocks = clamp_blocks(
+      ceil_div(n, kGatherThreads * 4LL * kGatherVecs), kMaxGridBlocks);
+  gather2_kernel<<<blocks, kGatherThreads, 0, s>>>(
+      reinterpret_cast<const int2*>(pairs), n_bins, keys, n, (int)head, oa,
+      ob);
   return (int)cudaGetLastError();
 }

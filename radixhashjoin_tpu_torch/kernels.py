@@ -8,7 +8,8 @@ hash of its own source and the flags, so an edited source never loads a
 stale build. Nothing here runs at import time: the CPU tests import this
 module on machines with no nvcc and no card.
 
-    csrc/tables.cu  rhj_weighted_bincount, rhj_table_gather
+    csrc/tables.cu  rhj_weighted_bincount, rhj_table_gather,
+                    rhj_table_gather2
     csrc/radix.cu   rhj_radix_histogram, rhj_rank_hist
 
 A missing nvcc, a failed build, a refused launch or a wrong operand
@@ -16,8 +17,9 @@ raises. There is no fallback: the ops modules send only CUDA tensors
 here, and a CUDA tensor either runs the kernel or fails.
 
 `LAUNCHES` counts kernel launches per wrapper ("bincount", "gather",
-"radix_hist", "rank_hist"), so a run can show that a path went through
-these kernels; `counted(fn)` reads the launches of one call.
+"gather2", "radix_hist", "rank_hist"), so a run can show that a path
+went through these kernels; `counted(fn)` reads the launches of one
+call.
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ RADIX_HIST_MAX_BINS = 32 * 1024
 RANK_HIST_MAX_BINS = 227 * 1024 // 8 - 1
 RANK_BLOCK = 2048
 
-LAUNCHES = {"bincount": 0, "gather": 0, "radix_hist": 0, "rank_hist": 0}
+LAUNCHES = {"bincount": 0, "gather": 0, "gather2": 0, "radix_hist": 0,
+            "rank_hist": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -125,6 +128,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.rhj_weighted_bincount.restype = i32
         lib.rhj_table_gather.argtypes = [ptr, i32, ptr, i64, ptr, i32, ptr]
         lib.rhj_table_gather.restype = i32
+        lib.rhj_table_gather2.argtypes = [ptr, i32, ptr, i64, ptr, ptr, i32,
+                                          ptr]
+        lib.rhj_table_gather2.restype = i32
     else:
         lib.rhj_radix_histogram.argtypes = [ptr, i64, ptr, ptr, i32, i32,
                                             ptr]
@@ -227,6 +233,45 @@ def table_gather_cuda(table: torch.Tensor, keys: torch.Tensor
     _raise_on(err, "rhj_table_gather")
     LAUNCHES["gather"] += 1
     return out
+
+
+def table_gather2_cuda(table_a: torch.Tensor, table_b: torch.Tensor,
+                       keys: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(int32[n], int32[n]): table_a[keys[i]] and table_b[keys[i]] where
+    0 <= keys[i] < len(table_a), else 0; one launch reads each key once.
+    The tables have one length; they are interleaved into one table of
+    (a, b) pairs first (a torch.stack), so that a key's two values come
+    in one 8-byte read. Both results share keys' offset within 16 bytes,
+    as table_gather_cuda's does."""
+    _check("table_a", table_a)
+    _check("table_b", table_b)
+    _check("keys", keys)
+    if table_a.device != keys.device or table_b.device != keys.device:
+        raise ValueError("table_a/table_b/keys: device mismatch")
+    n_bins = table_a.shape[0]
+    if table_b.shape[0] != n_bins:
+        raise ValueError(f"tables of {n_bins} and {table_b.shape[0]} "
+                         f"entries: expected one length")
+    if n_bins >= 2**31:
+        raise ValueError(f"table too long for int32 keys: {n_bins}")
+    n = keys.shape[0]
+    if n == 0 or n_bins == 0:
+        zeros = torch.zeros(n, dtype=torch.int32, device=keys.device)
+        return zeros, zeros.clone()
+    pairs = torch.stack([table_a, table_b], dim=1)
+    off = keys.data_ptr() % 16 // 4
+    out_a = torch.empty(n + off, dtype=torch.int32, device=keys.device)[off:]
+    out_b = torch.empty(n + off, dtype=torch.int32, device=keys.device)[off:]
+    lib = _load("tables")
+    sms, stream = _launch_env(keys)
+    with torch.cuda.device(keys.device):
+        err = lib.rhj_table_gather2(pairs.data_ptr(), n_bins, keys.data_ptr(),
+                                    n, out_a.data_ptr(), out_b.data_ptr(),
+                                    sms, stream)
+    _raise_on(err, "rhj_table_gather2")
+    LAUNCHES["gather2"] += 1
+    return out_a, out_b
 
 
 def radix_histogram_cuda(vals: torch.Tensor,

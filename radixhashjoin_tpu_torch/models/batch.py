@@ -51,7 +51,6 @@ from ..ops.chain import eq_filter_matrix, eq_filter_rows
 from ..ops.filter import filter_full, filter_live
 from ..ops.join import JoinCapacityError
 from ..ops.stage import part_shape, run_stage
-from ..ops.tables import check_impl
 from ..ops.terminal import channel_spec, terminal_join_and_project
 from ..storage import Relation
 from ..utils.limbs import U64_MASK, combine_channels
@@ -128,8 +127,6 @@ class BatchExecutor:
                          "ftree_queries": 0}
         # query-signature -> planned ftree (or None = doesn't factorize)
         self._ftree_plans: Dict[tuple, object] = {}
-        check_impl(config.ftree_scatter)
-        check_impl(config.ftree_gather)
         kind = config.join_backend
         if kind == "auto":
             kind = ("dense" if self.catalog.domain <= config.max_dense_domain
@@ -389,9 +386,15 @@ class BatchExecutor:
         rows where col1[r1] == col2[r2]; every prior edge/selection forces
         value equality within its class on all surviving rows, so
           * both cols in one class -> the edge is an identity filter:
-            drop it (exact: rows are non-empty here unless the query is
-            already NULL, and each surviving row's pair is in the pair
-            set, so the join's NULL test cannot fire either);
+            drop it. Exact only when nothing at this edge position could
+            have emptied the rows while leaving its own pair set
+            non-empty (sums 0, not NULL): a selection or a fusion there
+            can, and then this join's pair set is empty and the oracle
+            prints NULL (oracle.py:134-140), which the dropped edge would
+            never notice, so either falls back. Otherwise the rows are
+            non-empty unless the query is already NULL, and each
+            surviving row's pair is in the pair set, so the join's NULL
+            test cannot fire;
           * one col's class holds a column of the OTHER col's slot ->
             the condition collapses to a SAME-SLOT selection, recorded
             with born_of_join=True (its pair-set-empty NULL rule differs
@@ -469,11 +472,14 @@ class BatchExecutor:
                 ra, rb = find(a), find(b)
                 at = len(comp["edges"])
                 if ra == rb:
-                    # identity — but a selection pending at this exact
+                    # identity — but a selection or a fusion at this exact
                     # position could empty the rows first, and then the
                     # join's pair set IS empty (NULL) while the dropped
                     # edge would never notice: fall back in that case
                     if any(s[3] == at for s in comp["sels"]):
+                        return None
+                    if any(f_at == at for (f_at, _i)
+                           in comp.get("fused_at", ())):
                         return None
                     continue
                 # path rewriting through the equivalence classes: every

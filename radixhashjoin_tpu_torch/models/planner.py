@@ -1,15 +1,23 @@
-"""Join-order planner (counterpart: radixhashjoin_tpu/models/planner.py,
-copied line for line: host code, no device work).
+"""Join-order planner (counterpart: radixhashjoin_tpu/models/planner.py:
+host code, no device work).
 
 Gated behind EngineConfig.enable_join_reordering (default off =
 written-order parity). Greedy connected ordering: repeatedly pick the
 cheapest next join by the stats-based cardinality estimate
 (models/stats.py), constrained to joins touching an already-joined slot
-once a component exists. The connectivity constraint keeps the engine's
-chaining semantics (a fresh case-1 join wipes other slots' data): for
-connected-in-order plans the output multiset equals the written order's.
+once a component exists.
 
-Same-slot predicates (pure row filters) are hoisted to the front.
+Under the reference's chaining semantics (oracle.py) only one kind of
+query keeps its result when its joins move: one whose written order
+attaches one fresh slot per join (a tree of joins over distinct slots).
+Then every connected order builds the same tree and the same multiset.
+Anything else changes lines when reordered: a fresh same-slot predicate
+or a case-1 join (both slots fresh) wipes the intermediate, and a
+case-3 step (both slots joined) tests its own pair set for NULL, so
+hoisting or moving such a step changes what it sees. Such queries keep
+their written order. This is a declared divergence from the JAX
+package, whose planner hoists same-slot predicates and reorders every
+query (ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -22,8 +30,10 @@ from .stats import SlotStats, estimate_join_output, seed_stats
 
 
 def reorder_joins(q: Query, relations: Sequence[Relation]) -> Query:
-    """Return a Query with a (possibly) cheaper join order."""
-    if len(q.joins) <= 1:
+    """Return a Query with a (possibly) cheaper join order; a query whose
+    written order does not attach one fresh slot per join comes back
+    unchanged."""
+    if len(q.joins) <= 1 or not fresh_slot_chain(q.joins):
         return q
     stats = seed_stats(relations, q.slots)
     for f in q.filters:
@@ -35,24 +45,12 @@ def reorder_joins(q: Query, relations: Sequence[Relation]) -> Query:
     ordered: List[JoinPred] = []
     joined: set = set()
 
-    # hoist same-slot (row-filter) predicates: cheapest first, no reordering
-    # hazard (they commute with everything)
-    for j in list(remaining):
-        if j.slot1 == j.slot2:
-            remaining.remove(j)
-            ordered.append(j)
-
     while remaining:
-        if joined:
-            candidates = [j for j in remaining
-                          if j.slot1 in joined or j.slot2 in joined]
-            if not candidates:
-                # disconnected component: preserve written order from here
-                # (the case-1 wipe makes reordering unsafe)
-                ordered.extend(remaining)
-                break
-        else:
-            candidates = remaining
+        # the joins form a tree over the slots, so a connected candidate
+        # exists until none remain
+        candidates = ([j for j in remaining
+                       if j.slot1 in joined or j.slot2 in joined]
+                      if joined else remaining)
         best = min(candidates, key=lambda j: estimate_join_output(
             stats[j.slot1], j.col1, stats[j.slot2], j.col2))
         remaining.remove(best)
@@ -61,6 +59,22 @@ def reorder_joins(q: Query, relations: Sequence[Relation]) -> Query:
         _propagate_join(stats, best)
 
     return Query(q.slots, ordered, q.filters, q.projections, text=q.text)
+
+
+def fresh_slot_chain(joins: Sequence[JoinPred]) -> bool:
+    """True when the written order attaches one fresh slot per join: the
+    first join joins two distinct slots and every later one exactly one
+    joined slot with one fresh slot (no same-slot predicate, no case-1
+    wipe, no case-3 step)."""
+    joined: set = set()
+    for j in joins:
+        if j.slot1 == j.slot2:
+            return False
+        n_joined = (j.slot1 in joined) + (j.slot2 in joined)
+        if joined and n_joined != 1:
+            return False
+        joined.update((j.slot1, j.slot2))
+    return True
 
 
 def _rough_filter_estimate(s: SlotStats, col: int, op: str, k: int) -> int:

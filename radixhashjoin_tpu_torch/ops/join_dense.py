@@ -9,14 +9,13 @@ binary search:
                       csrc/tables.cu, on a CUDA tensor)
           T_lo[v]   = exclusive cumsum of T_cnt = first position of v in
                       the value-sorted right side
-          counts[i] = T_cnt[lv[i]], lo[i] = T_lo[lv[i]]   (two lookups:
-                      the lookup kernel, csrc/tables.cu, on a CUDA tensor)
+          counts[i] = T_cnt[lv[i]], lo[i] = T_lo[lv[i]]   (one fused
+                      double lookup, table_gather2: the kernel
+                      rhj_table_gather2, csrc/tables.cu, on a CUDA tensor)
   expand: the same ownership scan as the sort backend (ops/join.py).
 
 Interface-compatible with ops/join.py: probe returns (order, lo,
-offsets, cum, total); expand returns (left index, right index). The
-reference's double lookup `table_gather2` (plain XLA gathers off a TPU)
-is two calls of the port's `table_gather`.
+offsets, cum, total); expand returns (left index, right index).
 """
 
 from __future__ import annotations
@@ -24,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from .join import _counts_to_cum, expand_pairs
-from .tables import scatter_table, table_gather
+from .tables import scatter_table, table_gather, table_gather2
 
 
 def dense_probe(lvals: torch.Tensor, lcount, rvals: torch.Tensor, rcount,
@@ -43,8 +42,7 @@ def dense_probe(lvals: torch.Tensor, lcount, rvals: torch.Tensor, rcount,
     order = torch.sort(rv, stable=True).indices.to(torch.int32)
     lv = torch.where(li < lcount, lvals, -1)
     lv_safe = lv.clamp(0, domain - 1)
-    cnt_g = table_gather(t_cnt, lv_safe)
-    lo = table_gather(t_lo, lv_safe)
+    cnt_g, lo = table_gather2(t_cnt, t_lo, lv_safe)
     counts = torch.where(lv >= 0, cnt_g, 0)
     offsets, cum, total = _counts_to_cum(counts)
     return order, lo, offsets, cum, total

@@ -49,7 +49,8 @@ from radixhashjoin_tpu_torch.ops.join import JoinCapacityError
 from radixhashjoin_tpu_torch.utils import limbs as plimbs
 
 from test_fuzz import _random_catalog, _random_query
-from test_torch_engine import CASE3, _merge, _to_port, _u64, _wide_case
+from test_torch_engine import (CASE3, _from_port, _merge, _to_port, _u64,
+                               _wide_case)
 from test_torch_executor import SHAPES, _shapes_catalog
 
 torch.set_num_threads(1)
@@ -243,8 +244,11 @@ def test_aggregate_and_weighted_fold_match_jax():
 
 
 def test_stats_and_reorder_match_jax():
-    """The host estimator and the join-order planner, copied line for
-    line: equal stats after filters and joins, equal join orders."""
+    """The host estimator and the join-order planner: equal stats after
+    filters and joins; equal join orders on queries that attach one fresh
+    slot per join, and the written order on every other query, which
+    JAX's planner reorders (the declared divergence of fault B,
+    tests/test_torch_faults.py)."""
     rng = np.random.default_rng(8)
     rels = _random_catalog(rng)
     prels, _ = _to_port(rels)
@@ -268,7 +272,8 @@ def test_stats_and_reorder_match_jax():
             jplanner._propagate_join(js, j)
             pplanner._propagate_join(ps, pj)
         assert [vars(s) for s in js] == [vars(s) for s in ps]
-        jo = jplanner.reorder_joins(q, rels).joins
+        jo = (jplanner.reorder_joins(q, rels).joins
+              if pplanner.fresh_slot_chain(pq.joins) else q.joins)
         po = pplanner.reorder_joins(pq, prels).joins
         assert ([(j.slot1, j.col1, j.slot2, j.col2) for j in jo]
                 == [(j.slot1, j.col1, j.slot2, j.col2) for j in po])
@@ -432,15 +437,17 @@ def _catalog(name):
 
 
 def _agree(rels, queries, kw, configs=None):
-    """Port == JAX == oracle lines, equal counters; the oracle runs the
-    query the engines run (reordered when reordering is on). `configs`:
-    the (port, JAX) config objects, else both built from `kw`."""
+    """Port == JAX == oracle lines, equal counters; the oracle and JAX's
+    batch executor run the query the port's engine runs (in the port's
+    order when reordering is on). `configs`: the (port, JAX) config
+    objects, else both built from `kw`."""
     pcfg, jcfg = configs or (EngineConfig(**kw), JaxConfig(**kw))
     prels, pqueries = _to_port(rels, queries)
     eng = Engine(prels, pcfg, device="cpu")
     got = eng.run_batch(pqueries)
     ref = jbatch.BatchExecutor(rels, jcfg)
-    planned = ([jplanner.reorder_joins(q, rels) for q in queries]
+    planned = ([_from_port(q, pplanner.reorder_joins(pq, prels))
+                for q, pq in zip(queries, pqueries)]
                if kw.get("enable_join_reordering") else queries)
     jax_lines = [format_result(r, len(q.projections))
                  for r, q in zip(ref.run_batch(planned), queries)]

@@ -196,6 +196,7 @@ OPT_IN_CASES = {
              "dense_probe_narrow_domain_tuples_per_s",
              "star_join_engine_tuples_per_s",
              "star_join_smalldim_engine_tuples_per_s",
+             "star_join_smalldim_engine_tuples_per_s",
              "zipf_join_engine_tuples_per_s", "zipf_join_engine_tuples_per_s",
              "star_join_big_engine_tuples_per_s",
              "chain_join_big_engine_tuples_per_s"],
@@ -204,7 +205,7 @@ OPT_IN_CASES = {
              lambda rng: bench_scale.zipf_join(_N, rng),
              lambda rng: bench_scale.star_big(_N, rng),
              lambda rng: bench_scale.chain(_N, rng)],
-            [None, None, None, 0, 1, 2, 2, 3, 4]),
+            [None, None, None, 0, 1, 1, 2, 2, 3, 4]),
     "zipf_only": (["--zipf-only", "--zipf-rows", "12"],
                   ["zipf_join_engine_tuples_per_s"] * 2,
                   [lambda rng: bench_scale.zipf_join(_N, rng)], [0, 0]),
@@ -259,6 +260,7 @@ def test_main_cpu_lines_and_skew_on_two_gloo_ranks():
         "dense_probe_narrow_domain_tuples_per_s",
         "star_join_engine_tuples_per_s",
         "star_join_smalldim_engine_tuples_per_s",
+        "star_join_smalldim_engine_tuples_per_s",
         "skewaware_dist_join_tuples_per_s"]
     assert all(ln["exact"] is True and ln["value"] == "not measured"
                for ln in lines)
@@ -275,9 +277,24 @@ def test_main_cpu_lines_and_skew_on_two_gloo_ranks():
     assert skew["overflow"] == 0
 
 
-def test_main_rejects_unported_impl(capsys):
-    assert bench_scale.main(["--device", "cpu", "--impl", "xla"]) == 2
-    assert "not ported" in capsys.readouterr().err
+@pytest.mark.parametrize("impl,printed", [
+    ("xla", ["xla"]), ("both", ["xla", "auto"]), ("auto", ["auto"]),
+    ("mxu", ["mxu"])])
+def test_main_rejects_unported_impl(impl, printed):
+    """--impl takes the reference's xla | auto | both (the default: one
+    small-dimension star line for each of xla and auto) and any table
+    name (the test's name is from when xla and both exited 2): each line
+    exact, naming its impl, with the same sums."""
+    out = io.StringIO()
+    assert bench_scale.main(["--device", "cpu", "--rows", "12", "--impl",
+                             impl], out) == 0
+    lines = [ln for ln in _lines(out) if ln["metric"]
+             == "star_join_smalldim_engine_tuples_per_s"]
+    assert [ln["table_impl"] for ln in lines] == printed
+    assert all(ln["exact"] is True and ln["factorized"] for ln in lines)
+    assert len({tuple(ln["sums"]) for ln in lines}) == 1
+    assert all(set(ln["launches"]) == set(bench_scale.kernels.LAUNCHES)
+               for ln in lines)
 
 
 # ---- bench.py: the end-to-end twin ----
@@ -385,6 +402,20 @@ def test_cli_default_device_exits_2_without_a_card(mod):
                           timeout=240)
     assert proc.returncode == 2, proc.stderr
     assert "--device cpu" in proc.stderr and proc.stdout == ""
+
+
+def test_bench_ab_exits_2_without_a_card():
+    """bench_ab.py (run as a file, with the checkout to time) refuses to
+    run without a card, printing no result."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    proc = subprocess.run([sys.executable,
+                           os.path.join("radixhashjoin_tpu_torch",
+                                        "bench_ab.py"), "--root", REPO],
+                          capture_output=True, text=True, cwd=REPO,
+                          timeout=240)
+    assert proc.returncode == 2, proc.stderr
+    assert "CUDA card" in proc.stderr and proc.stdout == ""
 
 
 @pytest.mark.parametrize("mod", MODULES)

@@ -75,6 +75,63 @@ def test_gather_kernel_exact(dev, n, n_bins):
     assert torch.equal(got, table_gather_torch(table, keys))
 
 
+def _gather2_exact(ta, tb, keys):
+    before = kernels.LAUNCHES["gather2"]
+    ga, gb = kernels.table_gather2_cuda(ta, tb, keys)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gather2"] == before + 1
+    assert torch.equal(ga, table_gather_torch(ta, keys))
+    assert torch.equal(gb, table_gather_torch(tb, keys))
+    assert ga.data_ptr() % 16 == gb.data_ptr() % 16 == keys.data_ptr() % 16
+    return ga, gb
+
+
+@pytest.mark.parametrize("n_bins", [1, 77, SMEM_BINS + 1, 1 << 20])
+def test_gather2_kernel_exact(dev, n_bins):
+    """The fused double lookup against two plain lookups: tiny and
+    ragged key counts, keys out of range, views at offsets 1-3."""
+    g = torch.Generator(device=dev).manual_seed(n_bins)
+    ta, tb = (torch.randint(-2**31, 2**31 - 1, (n_bins,), generator=g,
+                            device=dev, dtype=torch.int32) for _ in "ab")
+    for n in (1, 3, 5, 4097, (1 << 22) + 3):
+        base = torch.randint(-5, n_bins + 5, (n + 4,), generator=g,
+                             device=dev, dtype=torch.int32)
+        for offset in (0, 1, 2, 3):
+            _gather2_exact(ta, tb, base[offset:offset + n])
+    with pytest.raises(ValueError, match="one length"):
+        kernels.table_gather2_cuda(ta, tb[:0] if n_bins > 1 else
+                                   tb.repeat(2), base)
+
+
+@pytest.mark.parametrize("impl", ["mxu", "hier", "sorted", "xla",
+                                  "hier_presorted", "onehot"])
+def test_table_variants_on_cuda_match_plain(dev, impl):
+    """The JAX package's table variants on CUDA tensors (torch._int_mm,
+    float32 bmm, sort, searchsorted) against the plain versions, with
+    the one-hot chunks small enough to take several."""
+    from radixhashjoin_tpu_torch.ops import tables
+    g = torch.Generator(device=dev).manual_seed(len(impl))
+    n, bins = (1 << 16) + 5, 3000
+    idx = torch.randint(-3, bins + 3, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    w = torch.randint(0, 1000, (n,), generator=g, device=dev,
+                      dtype=torch.int32)
+    want = weighted_bincount_torch(idx, w, bins)
+    if impl == "hier_presorted":
+        idx = torch.sort(idx).values
+        want = weighted_bincount_torch(idx, w, bins)
+    acc = torch.zeros(bins, dtype=torch.int32, device=dev)
+    got = tables.scatter_add_window(acc, idx, w, impl)
+    assert torch.equal(got, want)
+    table = torch.randint(-2**31, 2**31 - 1, (bins,), generator=g,
+                          device=dev, dtype=torch.int32)
+    sk = torch.sort(idx).values
+    for fn in (tables.table_gather_onehot, tables.table_gather_hier,
+               tables.table_gather_diffcum, tables.table_gather_xla):
+        assert torch.equal(fn(table, sk), table_gather_torch(table, sk))
+    assert torch.equal(tables.weighted_bincount_mxu(idx, w, bins), want)
+
+
 # ---- adversarial shapes of the build and lookup (csrc/tables.cu) ----
 
 def _bincount_exact(idx, w, n_bins):
@@ -771,8 +828,10 @@ def test_chain_two_deep_huge_cuda_matches_closed_form(dev, monkeypatch):
 def test_bench_scale_lines_launch_the_kernels(dev):
     """bench_scale's CLI at 2^16 rows on the card, every config: each line
     exact (the dense probes element by element) and timed, each dense
-    probe's and engine config's exactness run launching the build and the
-    lookup, the skew join's the rank kernel."""
+    probe's exactness run launching the build and the fused double
+    lookup, each engine config's the build and the lookup (but the
+    small-dimension star's xla line: the library calls), the skew join's
+    the rank kernel."""
     import io
     import json
 
@@ -783,11 +842,17 @@ def test_bench_scale_lines_launch_the_kernels(dev):
                              "--skew", "--skew-rows", "65536", "--devices",
                              "1"], out) == 0
     lines = [json.loads(ln) for ln in out.getvalue().splitlines()]
-    assert len(lines) == 10
+    assert len(lines) == 11
     for ln in lines:
         assert ln["exact"] is True and isinstance(ln["value"], float), ln
-        keys = (("rank_hist",) if ln["metric"].startswith("skewaware")
-                else ("bincount", "gather"))
+        if ln["metric"].startswith("skewaware"):
+            keys = ("rank_hist",)
+        elif ln["metric"].startswith("dense_probe"):
+            keys = ("bincount", "gather2")
+        elif ln.get("table_impl") == "xla":
+            keys = ()
+        else:
+            keys = ("bincount", "gather")
         assert all(ln["launches"][k] > 0 for k in keys), ln
 
 

@@ -104,6 +104,12 @@ def _to_port(rels, queries=()):
             [tworkload.parse_query(_line(q)) for q in queries])
 
 
+def _from_port(q, pq):
+    """q with the port query pq's join order, as a JAX Query."""
+    return Query(q.slots, [JoinPred(j.slot1, j.col1, j.slot2, j.col2)
+                           for j in pq.joins], q.filters, q.projections)
+
+
 def _port_engine(rels, config=None):
     return Engine(_to_port(rels)[0], config or EngineConfig(), device="cpu")
 
@@ -261,7 +267,8 @@ def _huge_agree(monkeypatch, config):
     """A 1500-row relation past a shrunken _BIG_WAVE_ROWS (1024, both
     packages: the reference's window folds need 1024 rows) through the
     windowed huge-node pass: the port's Engine under `config` equals the
-    JAX engine and the oracle."""
+    JAX engine (under the same window and table settings) and the
+    oracle."""
     from radixhashjoin_tpu.ops import factorized as jax_factorized
     from radixhashjoin_tpu_torch.ops import factorized
     for mod in (factorized, jax_factorized):
@@ -281,7 +288,9 @@ def _huge_agree(monkeypatch, config):
             for q in queries]
     assert want[1] == "NULL"
     assert eng.run_batch(pqueries) == want
-    ref = JaxBatch(rels, JaxConfig(ftree_window_sort=config.ftree_window_sort))
+    ref = JaxBatch(rels, JaxConfig(ftree_window_sort=config.ftree_window_sort,
+                                   ftree_scatter=config.ftree_scatter,
+                                   ftree_gather=config.ftree_gather))
     assert [format_result(r, len(q.projections))
             for r, q in zip(ref.run_batch(queries), queries)] == want
     assert eng.batch_executor.counters["ftree_queries"] == 2
@@ -301,8 +310,8 @@ def test_huge_node_raises(monkeypatch):
 def test_unported_config_raises(field, value, monkeypatch):
     """Settings that raised until they were ported now run, and give the
     JAX package's lines under the same setting and the oracle's (the name
-    is from when they raised); the table kernels the port does not have
-    still raise."""
+    is from when they raised); the table settings also through the
+    huge-node windows."""
     if field == "ftree_window_sort":
         # accepted: the port's one unsorted window pass gives the lines
         # of the reference's sorted windows on a huge node
@@ -316,8 +325,8 @@ def test_unported_config_raises(field, value, monkeypatch):
             _port_engine([_u64([1, 2])], EngineConfig(**{field: value}))
         return
     if field in ("ftree_scatter", "ftree_gather"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _port_engine([_u64([1, 2])], EngineConfig(**{field: value}))
+        _huge_agree(monkeypatch, EngineConfig(**{field: value}))
+        _table_impls_agree(**{field: value})
         return
     # ported (tests/test_torch_settings.py covers each setting in full):
     # the JAX engine under the same setting, the Pallas one-hot build
@@ -339,6 +348,49 @@ def test_unported_config_raises(field, value, monkeypatch):
                 == ref.batch_executor.counters)
 
 
+def _table_impls_agree(ftree_scatter="auto", ftree_gather="auto"):
+    """_shapes() and _fuzz(0) under one ftree_scatter / ftree_gather pair:
+    the port's lines equal the JAX engine's under the same names and the
+    oracle's, with equal counters."""
+    cfg = {"ftree_scatter": ftree_scatter, "ftree_gather": ftree_gather}
+    rels, queries = _merge(_shapes() + [_fuzz(0)])
+    prels, pqueries = _to_port(rels, queries)
+    eng = Engine(prels, EngineConfig(**cfg), device="cpu")
+    got = eng.run_batch(pqueries)
+    ref = JaxBatch(rels, JaxConfig(**cfg))
+    oracle = OracleExecutor(rels)
+    want = [format_result(oracle.execute(q), len(q.projections))
+            for q in queries]
+    assert got == want
+    assert [format_result(r, len(q.projections))
+            for r, q in zip(ref.run_batch(queries), queries)] == want
+    assert eng.batch_executor.counters == ref.counters
+    assert eng.batch_executor.counters["ftree_queries"] > 0
+
+
+# with test_unported_config_raises' ("mxu", "auto") and ("auto", "xla"),
+# every name JAX's table dispatch distinguishes, on the build and on the
+# lookup side ("hier_presorted" is a window name: a one-shot build falls
+# through to the engine, as in JAX)
+TABLE_IMPL_PAIRS = [("onehot", "onehot"), ("hier", "xla"),
+                    ("sorted", "onehot"), ("xla", "xla"),
+                    ("hier_presorted", "auto"), ("auto", "hier")]
+
+
+@pytest.mark.parametrize("scatter,gather", TABLE_IMPL_PAIRS)
+def test_table_impls_match_jax_and_oracle(scatter, gather):
+    _table_impls_agree(scatter, gather)
+
+
+@pytest.mark.parametrize("scatter", ["hier", "hier_presorted", "sorted",
+                                     "xla"])
+def test_table_impls_huge_windows(scatter, monkeypatch):
+    """The window builds of the huge-node pass under each build name
+    (scatter_add_window; "mxu" in test_unported_config_raises), against
+    JAX's engine under the same name."""
+    _huge_agree(monkeypatch, EngineConfig(ftree_scatter=scatter))
+
+
 @pytest.mark.parametrize("field,value", [
     ("enable_join_reordering", True), ("factorized", False),
     ("fuse_stages", False), ("join_backend", "sort"),
@@ -354,8 +406,11 @@ def test_lifted_config_runs(field, value):
     ref = JaxBatch(rels, JaxConfig(**{field: value}))
     planned = queries
     if field == "enable_join_reordering":
-        from radixhashjoin_tpu.models.planner import reorder_joins
-        planned = [reorder_joins(q, rels) for q in queries]
+        # the port's order (JAX's on fresh-slot chains, else the written
+        # one: tests/test_torch_faults.py), run by both engines
+        from radixhashjoin_tpu_torch.models.planner import reorder_joins
+        planned = [_from_port(q, reorder_joins(pq, prels))
+                   for q, pq in zip(queries, pqueries)]
     oracle = OracleExecutor(rels)
     want = [format_result(oracle.execute(q), len(q.projections))
             for q in planned]

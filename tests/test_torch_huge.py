@@ -541,8 +541,23 @@ def test_window_sort_values_run_one_pass(value):
         EngineConfig(ftree_window_sort=value + "x")
 
 
-@pytest.mark.parametrize("impl", ["mxu", "xla", "sorted"])
+@pytest.mark.parametrize("impl", ["mxu", "xla", "sorted", "hier",
+                                  "hier_presorted"])
 def test_scatter_add_window_unported_impls_raise(impl):
-    x = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tables.scatter_add_window(x, x, x, impl)
+    """The reference's window builds run (the name is from when they
+    raised): under each name the port adds in place what JAX's
+    scatter_add_window adds under the same name ("sorted" falls through
+    to the engine in both), on a sorted window with masked rows on the
+    sentinel."""
+    rng = np.random.default_rng(len(impl))
+    n_bins, n = 3000, 9000
+    acc = rng.integers(0, 2**20, n_bins).astype(np.int32)
+    idxs = np.sort(rng.integers(0, n_bins + 2, n)).astype(np.int32)
+    w = rng.integers(0, 1000, n).astype(np.int32)
+    tacc = torch.from_numpy(acc.copy())
+    got = tables.scatter_add_window(tacc, torch.from_numpy(idxs),
+                                    torch.from_numpy(w), impl)
+    assert got is tacc
+    want = jax_tables.scatter_add_window(jnp.asarray(acc), jnp.asarray(idxs),
+                                         jnp.asarray(w), impl)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

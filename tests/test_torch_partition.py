@@ -249,8 +249,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         kernels.radix_histogram_cuda(x, 4, 256)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.rank_hist_cuda(x, 8)
-    assert set(kernels.LAUNCHES) == {"bincount", "gather", "radix_hist",
-                                     "rank_hist"}
+    assert set(kernels.LAUNCHES) == {"bincount", "gather", "gather2",
+                                     "radix_hist", "rank_hist"}
 
 
 def test_each_library_hashes_its_own_source(tmp_path, monkeypatch):

@@ -4,9 +4,12 @@
 The port's plain versions must equal the JAX reference kernels exactly
 (integers, tolerance 0): the weighted bincount against the Pallas one-hot
 kernel in interpret mode and the XLA scatter; the gather against the
-Pallas gather kernel in interpret mode and numpy. The CUDA kernels
-themselves run only on a card (tests/test_torch_cuda.py, chip_smoke.py);
-here the kernel module must import and refuse cleanly without nvcc.
+Pallas gather kernel in interpret mode and numpy. The JAX package's other
+table variants (mxu, hier, sorted, one-hot, diffcum, the fused double
+lookup) and the impl dispatch must equal JAX's functions of the same name
+element for element. The CUDA kernels themselves run only on a card
+(tests/test_torch_cuda.py, chip_smoke.py); here the kernel module must
+import and refuse cleanly without nvcc.
 """
 
 import jax.numpy as jnp
@@ -14,10 +17,12 @@ import numpy as np
 import pytest
 import torch
 
+from radixhashjoin_tpu.ops import tables as jtables
 from radixhashjoin_tpu.ops.tables import (table_gather_pallas,
                                           weighted_bincount_onehot,
                                           weighted_bincount_xla)
 from radixhashjoin_tpu_torch import kernels
+from radixhashjoin_tpu_torch.ops import tables as ptables
 from radixhashjoin_tpu_torch.ops.tables import (scatter_table, table_gather,
                                                 table_gather_torch,
                                                 weighted_bincount_torch)
@@ -236,13 +241,257 @@ def test_tables_plain_on_unaligned_views(offset, rem):
             interpret=True)))
 
 
-@pytest.mark.parametrize("impl", ["mxu", "hier", "sorted", "xla"])
+@pytest.mark.parametrize("impl", ["mxu", "hier", "sorted", "xla", "auto",
+                                  "onehot", "hier_presorted", "unknown"])
 def test_unported_impls_raise(impl):
-    x = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scatter_table(x, x, 8, impl)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        table_gather(x, x, impl)
+    """Every impl name runs (the test's name is from when the TPU-shaped
+    ones raised): scatter_table, table_gather and table_gather2 under
+    each equal JAX's dispatch under the same name, element for element,
+    including JAX's fall-through to the engines for names it does not
+    branch on (in-range lookup keys: JAX's engine gather promises them).
+    JAX's "onehot" build is its Pallas kernel, which interpret mode runs
+    slowly; its MXU build stands in (the same values)."""
+    rng = np.random.default_rng(len(impl))
+    n, bins = 3000, 600
+    idx = rng.integers(0, bins + 4, n).astype(np.int32)
+    w = rng.integers(0, 1 << 16, n).astype(np.int32)
+    jimpl = impl if impl != "onehot" else "mxu"
+    want = np.asarray(jtables.scatter_table(jnp.asarray(idx), jnp.asarray(w),
+                                            bins, jimpl))
+    np.testing.assert_array_equal(
+        scatter_table(_t(idx), _t(w), bins, impl).numpy(), want)
+    table = rng.integers(-2**31, 2**31 - 1, bins).astype(np.int32)
+    keys = rng.integers(0, bins, n).astype(np.int32)
+    want = np.asarray(jtables.table_gather(jnp.asarray(table),
+                                           jnp.asarray(keys), impl))
+    np.testing.assert_array_equal(
+        table_gather(_t(table), _t(keys), impl).numpy(), want)
+    ja, jb = jtables.table_gather2(jnp.asarray(table),
+                                   jnp.asarray(table[::-1]),
+                                   jnp.asarray(keys), impl)
+    pa, pb = ptables.table_gather2(_t(table), _t(table[::-1]), _t(keys),
+                                   impl)
+    np.testing.assert_array_equal(pa.numpy(), np.asarray(ja))
+    np.testing.assert_array_equal(pb.numpy(), np.asarray(jb))
+
+
+# ---- the JAX package's other variants (ops/tables.py), by JAX's algorithm
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _build_input(case, rng):
+    """(idx, w, n_bins) of one build case: weights below a bound that
+    keeps every bin's total < 2**31."""
+    if case == "zipf":
+        n, bins = 20000, 3000
+        idx = _zipf_np(rng, n, bins)
+        idx[rng.random(n) < 0.1] = bins          # the wave's mask sentinel
+        return idx, rng.integers(0, 1000, n).astype(np.int32), bins
+    if case == "negatives_out_of_range":
+        n, bins = 5000, 700
+        idx = rng.integers(-50, bins + 50, n).astype(np.int32)
+        idx[::37] = np.iinfo(np.int32).max
+        return idx, rng.integers(0, 1 << 20, n).astype(np.int32), bins
+    if case == "sparse_spilling":                 # 1 key in ~5 bins
+        n, bins = 6000, 1 << 15
+        idx = rng.integers(0, bins, n).astype(np.int32)
+        return idx, rng.integers(0, 1 << 20, n).astype(np.int32), bins
+    if case == "one_bin_total_2^31-1":
+        n, bins = 4096, 1024
+        w = np.full(n, (2**31 - 1) // n, np.int64)
+        w[-1] += (2**31 - 1) - w.sum()
+        return np.full(n, 5, np.int32), w.astype(np.int32), bins
+    n, bins = (int(x) for x in case.split("x"))   # "rows x bins"
+    return (rng.integers(0, bins, n).astype(np.int32),
+            rng.integers(0, 1 << 24, n).astype(np.int32), bins)
+
+
+BUILD_VARIANT_CASES = ["zipf", "negatives_out_of_range", "sparse_spilling",
+                       "one_bin_total_2^31-1", "1x8", "7x17", "4099x4096",
+                       "2048x2048"]
+
+
+@pytest.mark.parametrize("name", ["sorted", "mxu", "hier"])
+@pytest.mark.parametrize("case", BUILD_VARIANT_CASES)
+def test_build_variant_matches_jax(name, case):
+    """weighted_bincount_{sorted,mxu,hier} equal JAX's function of the
+    same name on the same inputs (negative keys too: each drops them) and
+    the plain build."""
+    rng = np.random.default_rng(len(case) * 7 + len(name))
+    idx, w, bins = _build_input(case, rng)
+    got = getattr(ptables, f"weighted_bincount_{name}")(_t(idx), _t(w), bins)
+    assert got.dtype == torch.int32 and got.shape == (bins,)
+    want = np.asarray(getattr(jtables, f"weighted_bincount_{name}")(
+        jnp.asarray(idx), jnp.asarray(w), bins))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        got.numpy(), weighted_bincount_torch(_t(idx), _t(w), bins).numpy())
+
+
+@pytest.mark.parametrize("case", ["sorted", "sentinel_anchored_block",
+                                  "imperfect_order", "sparse_spilling"])
+def test_hier_presorted_matches_jax(case):
+    """The hier build with presorted=True (a window of a node-sorted
+    column), small blocks: sorted keys; a block anchored at the mask
+    sentinel n_bins holding later smaller keys (they spill); an
+    imperfect order; sparse keys that leave their windows."""
+    rng = np.random.default_rng(len(case))
+    n, bins, block, sub = 4000, 900, 128, 128
+    idx = np.sort(rng.integers(0, bins, n)).astype(np.int32)
+    if case == "sentinel_anchored_block":
+        idx[1024:1030] = bins                  # masked rows, then the rest
+        idx[1280] = bins                       # a block starts here
+    elif case == "imperfect_order":
+        idx[::50] = rng.integers(-2, bins + 2, idx[::50].shape[0])
+    elif case == "sparse_spilling":
+        idx = np.sort(rng.integers(0, 1 << 16, n)).astype(np.int32)
+        bins = 1 << 16
+    w = rng.integers(0, 1 << 20, n).astype(np.int32)
+    got = ptables.weighted_bincount_hier(_t(idx), _t(w), bins,
+                                         block_rows=block, sub_width=sub,
+                                         presorted=True).numpy()
+    want = np.asarray(jtables.weighted_bincount_hier(
+        jnp.asarray(idx), jnp.asarray(w), bins, block_rows=block,
+        sub_width=sub, presorted=True))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, weighted_bincount_torch(_t(idx), _t(w), bins).numpy())
+
+
+def _lookup_input(case, rng):
+    """(table, keys, sorted) of one lookup case."""
+    if case == "zipf":
+        n, bins = 20000, 3000
+        keys = _zipf_np(rng, n, bins)
+    elif case == "out_of_range":
+        n, bins = 5000, 700
+        keys = rng.integers(-40, bins + 40, n).astype(np.int32)
+        keys[::53] = np.iinfo(np.int32).max
+    elif case == "sparse_spilling":
+        n, bins = 3000, 1 << 15
+        keys = rng.integers(0, bins, n).astype(np.int32)
+    else:
+        n, bins = (int(x) for x in case.split("x"))
+        keys = rng.integers(0, bins, n).astype(np.int32)
+    table = rng.integers(-2**31, 2**31 - 1, bins).astype(np.int32)
+    table[:4] = [-2**31, 2**31 - 1, -1, 0]     # every byte boundary
+    return table, keys
+
+
+LOOKUP_VARIANT_CASES = ["zipf", "out_of_range", "sparse_spilling", "1x5",
+                        "9x17", "4099x8192"]
+
+
+@pytest.mark.parametrize("case", LOOKUP_VARIANT_CASES)
+def test_gather_onehot_matches_jax(case):
+    """table_gather_onehot (unsorted keys, out-of-range ones give 0)
+    equals JAX's and the plain lookup."""
+    table, keys = _lookup_input(case, np.random.default_rng(len(case)))
+    got = ptables.table_gather_onehot(_t(table), _t(keys)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jtables.table_gather_onehot(
+        jnp.asarray(table), jnp.asarray(keys))))
+    np.testing.assert_array_equal(
+        got, table_gather_torch(_t(table), _t(keys)).numpy())
+
+
+@pytest.mark.parametrize("name", ["diffcum", "hier"])
+@pytest.mark.parametrize("case", LOOKUP_VARIANT_CASES)
+def test_sorted_gather_variant_matches_jax(name, case):
+    """table_gather_{diffcum,hier} on sorted keys equal JAX's function of
+    the same name and the plain lookup; the hier lookup with 128-key
+    blocks and windows (test_one_hot_chunks runs JAX's sizes), and in two
+    cases also on the unsorted keys (every out-of-window key takes the
+    spill gather)."""
+    table, keys = _lookup_input(case, np.random.default_rng(len(case) + 3))
+    fn_p = getattr(ptables, f"table_gather_{name}")
+    fn_j = getattr(jtables, f"table_gather_{name}")
+    kw = {"block_rows": 128, "sub_width": 128} if name == "hier" else {}
+    sk = np.sort(keys)
+    got = fn_p(_t(table), _t(sk), **kw).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(fn_j(jnp.asarray(table), jnp.asarray(sk), **kw)))
+    np.testing.assert_array_equal(
+        got, table_gather_torch(_t(table), _t(sk)).numpy())
+    if name == "hier" and case in ("zipf", "out_of_range"):
+        got = fn_p(_t(table), _t(keys), block_rows=64, sub_width=32).numpy()
+        np.testing.assert_array_equal(got, np.asarray(fn_j(
+            jnp.asarray(table), jnp.asarray(keys), block_rows=64,
+            sub_width=32)))
+
+
+@pytest.mark.parametrize("case", LOOKUP_VARIANT_CASES)
+def test_gather2_matches_jax(case):
+    """table_gather2: the plain version of the fused kernel ("auto",
+    "onehot" on a CPU tensor) and "xla" equal JAX's table_gather2 (its
+    one-hot matmul of both tables' bytes under "onehot") and two plain
+    lookups."""
+    rng = np.random.default_rng(len(case) + 9)
+    ta, keys = _lookup_input(case, rng)
+    tb = rng.integers(-2**31, 2**31 - 1, ta.shape[0]).astype(np.int32)
+    ok = (keys >= 0) & (keys < ta.shape[0])
+    want = [np.where(ok, t[np.clip(keys, 0, t.shape[0] - 1)], 0)
+            for t in (ta, tb)]
+    ja, jb = jtables.table_gather2(jnp.asarray(ta), jnp.asarray(tb),
+                                   jnp.asarray(keys), "onehot")
+    np.testing.assert_array_equal(np.asarray(ja), want[0])
+    np.testing.assert_array_equal(np.asarray(jb), want[1])
+    for impl in ("auto", "onehot", "xla"):
+        ga, gb = ptables.table_gather2(_t(ta), _t(tb), _t(keys), impl)
+        np.testing.assert_array_equal(ga.numpy(), want[0])
+        np.testing.assert_array_equal(gb.numpy(), want[1])
+
+
+@pytest.mark.parametrize("variant", ["mxu", "hier", "onehot", "hier_gather"])
+def test_one_hot_chunks(variant, monkeypatch):
+    """With ONEHOT_CHUNK_BYTES shrunk so that a call takes many chunks
+    (the last one ragged), each one-hot variant still equals JAX's."""
+    monkeypatch.setattr(ptables, "ONEHOT_CHUNK_BYTES", 40000)
+    rng = np.random.default_rng(17)
+    n, bins = 30001, 1000
+    idx = rng.integers(-3, bins + 3, n).astype(np.int32)
+    w = rng.integers(0, 1000, n).astype(np.int32)
+    table = rng.integers(-2**31, 2**31 - 1, bins).astype(np.int32)
+    if variant in ("mxu", "hier"):
+        got = getattr(ptables, f"weighted_bincount_{variant}")(
+            _t(idx), _t(w), bins, **({"block_rows": 256, "sub_width": 256}
+                                     if variant == "hier" else {}))
+        want = getattr(jtables, f"weighted_bincount_{variant}")(
+            jnp.asarray(idx), jnp.asarray(w), bins,
+            **({"block_rows": 256, "sub_width": 256}
+               if variant == "hier" else {}))
+    elif variant == "onehot":
+        got = ptables.table_gather_onehot(_t(table), _t(idx))
+        want = jtables.table_gather_onehot(jnp.asarray(table),
+                                           jnp.asarray(idx))
+    else:
+        sk = np.sort(idx)
+        got = ptables.table_gather_hier(_t(table), _t(sk))
+        want = jtables.table_gather_hier(jnp.asarray(table), jnp.asarray(sk))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_hier_sizes_read_at_call_time(monkeypatch):
+    """The HIER_* block and window sizes are read at call time, as JAX's
+    are: shrunk in both packages, the builds and lookups still agree."""
+    for mod in (ptables, jtables):
+        monkeypatch.setattr(mod, "HIER_BLOCK_ROWS", 64)
+        monkeypatch.setattr(mod, "HIER_SUB_WIDTH", 32)
+        monkeypatch.setattr(mod, "HIER_GATHER_BLOCK_ROWS", 32)
+        monkeypatch.setattr(mod, "HIER_GATHER_SUB_WIDTH", 16)
+    rng = np.random.default_rng(3)
+    idx = np.sort(rng.integers(0, 500, 3000)).astype(np.int32)
+    w = rng.integers(0, 100, 3000).astype(np.int32)
+    np.testing.assert_array_equal(
+        ptables.weighted_bincount_hier(_t(idx), _t(w), 500).numpy(),
+        np.asarray(jtables.weighted_bincount_hier(jnp.asarray(idx),
+                                                  jnp.asarray(w), 500)))
+    table = rng.integers(-2**31, 2**31 - 1, 500).astype(np.int32)
+    np.testing.assert_array_equal(
+        ptables.table_gather_hier(_t(table), _t(idx)).numpy(),
+        np.asarray(jtables.table_gather_hier(jnp.asarray(table),
+                                             jnp.asarray(idx))))
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -251,6 +500,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         kernels.weighted_bincount_cuda(x, x, 8)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.table_gather_cuda(x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.table_gather2_cuda(x, x, x)
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
