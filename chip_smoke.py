@@ -55,7 +55,10 @@ Phases (any failure raises and exits non-zero; nothing is swallowed):
      every line equals the oracle's. Then one ftree_scatter /
      ftree_gather pair per table name (TABLE_PAIRS; "mxu", whose one-hot
      grows with the table, on bench_scale's small-dimension star at 2^22
-     fact rows, the rest on the 70 queries), each exact, with its sync
+     fact rows, the rest on the 70 queries), and the window builds'
+     names (WINDOW_PAIRS: "hier_presorted", "hier", "mxu") through the
+     huge-node pass on a 2^23 + 4099-row star past shrunken thresholds
+     (every window built under the name), each exact, with its sync
      check: 0 synchronizing calls inside a round. Then native against
      Python load and parse seconds (this catalog, and a star of phase
      4's shape written to files), and the A/B of warm walls: one round,
@@ -191,12 +194,22 @@ WAVE_KERNELS = ("bincount", "gather")
 # a dense probe's kernels: the build and the fused double lookup
 PROBE_KERNELS = ("bincount", "gather2")
 # phase 3d: one (ftree_scatter, ftree_gather) pair per table name of
-# ops/tables.py besides the default ("auto", "auto"); MXU_STAR_ROWS: the
-# small-dimension star that "mxu" runs on
+# ops/tables.py besides the default ("auto", "auto"): TABLE_PAIRS through
+# scatter_table and table_gather, on the 70 queries ("mxu" on the
+# small-dimension star of MXU_STAR_ROWS fact rows); WINDOW_PAIRS, the
+# names scatter_add_window branches on, through the huge-node pass on
+# bench_scale's star_big of WINDOW_FACT_ROWS fact rows over
+# SMALL_DIM_KEYS keys, with _BIG_WAVE_ROWS, _NARROW_PLANE_MIN_ROWS and
+# _BIG_WINDOW_ROWS shrunk to WINDOW_WAVE_ROWS / WINDOW_WAVE_ROWS /
+# WINDOW_ROWS for the run
 TABLE_PAIRS = (("xla", "xla"), ("onehot", "onehot"), ("hier", "auto"),
-               ("sorted", "onehot"), ("hier_presorted", "xla"),
-               ("mxu", "auto"))
+               ("sorted", "onehot"), ("mxu", "auto"))
 MXU_STAR_ROWS = 1 << 22
+WINDOW_PAIRS = (("hier_presorted", "xla"), ("hier", "onehot"),
+                ("mxu", "auto"))
+WINDOW_FACT_ROWS = (1 << 23) + 4099
+WINDOW_WAVE_ROWS = 1 << 22
+WINDOW_ROWS = 1 << 21
 
 
 def _nvidia_smi() -> str:
@@ -279,7 +292,8 @@ def phase_kernels(dev):
         # element offset (its scalar head)
         tb = table[-b:].contiguous()
         for kk in (k, k[1:]):
-            check("gather2", torch.cat(kernels.table_gather2_cuda(t, tb, kk)),
+            pairs = torch.stack((t, tb), 1)
+            check("gather2", torch.cat(kernels.table_gather2_cuda(pairs, kk)),
                   torch.cat(table_gather2_torch(t, tb, kk)),
                   f"n={kk.numel()} bins={b}")
     timed.update(_phase_radix_kernels(dev, gen, errs))
@@ -938,20 +952,22 @@ def phase_settings_cli(dev):
     return total
 
 
-def _table_pairs(dev, paths, batches, want):
-    """One ftree_scatter / ftree_gather pair per table name (TABLE_PAIRS),
-    in-process: the 70 queries (the catalog at `paths`, the oracle's lines
-    `want`) under each pair but "mxu", which builds a one-hot of every
+def _table_pairs(dev, paths, batches, want, window_rows=WINDOW_FACT_ROWS):
+    """One ftree_scatter / ftree_gather pair per table name, in-process:
+    the 70 queries (the catalog at `paths`, the oracle's lines `want`)
+    under each of TABLE_PAIRS but "mxu", which builds a one-hot of every
     row against every bin of the wave's table (~2^24 bins here) and runs
-    on bench_scale's small-dimension star instead (2 x 1024 bins),
-    against its closed form. Each run's launches counted from 0, its
-    counters, and on the card the sync check of a warm run. Returns the
-    launches, summed."""
+    on bench_scale's small-dimension star instead (2 x 1024 bins); then
+    each of WINDOW_PAIRS through the huge-node pass (_table_windows).
+    Each run exact against the oracle or the closed form, its launches
+    counted from 0, its counters, and on the card the sync check of a
+    warm run. Returns the launches, summed."""
     from radixhashjoin_tpu_torch import bench_scale, kernels
     from radixhashjoin_tpu_torch.config import EngineConfig
     from radixhashjoin_tpu_torch.models.engine import Engine
     total = {k: 0 for k in kernels.LAUNCHES}
     runs = {}
+    t_phase = time.perf_counter()
     for scatter, gather in TABLE_PAIRS:
         cfg = EngineConfig(ftree_scatter=scatter, ftree_gather=gather)
         if scatter == "mxu":
@@ -982,9 +998,83 @@ def _table_pairs(dev, paths, batches, want):
                                             lambda: eng.run_workload(work))
         runs[f"{scatter}/{gather}"] = run
         del eng
+    seconds = {"table_pairs": time.perf_counter() - t_phase}
+    t0 = time.perf_counter()
+    windows = _table_windows(dev, window_rows)
+    seconds["window_pairs"] = time.perf_counter() - t0
+    for name, run in windows.items():
+        for k in total:
+            total[k] += run["launches"][k]
+        runs[name] = run
     print(json.dumps({"phase": "settings_tables", "lines_equal_oracle": True,
-                      "runs": runs}))
+                      "runs": runs, "seconds": seconds}))
     return total
+
+
+def _table_windows(dev, fact_rows):
+    """Each of WINDOW_PAIRS through the huge-node windowed pass: the star
+    of bench_scale.star_big (fact_rows fact rows, SMALL_DIM_KEYS keys)
+    with the huge-node thresholds shrunk (see WINDOW_PAIRS), against its
+    closed form. Fails unless the pass ran scatter_add_window under the
+    pair's name at least once a window, and on the card unless the warm
+    run's sync check reads 0 synchronizing calls inside a round. Returns
+    {pair: run}."""
+    from radixhashjoin_tpu_torch import bench_scale, kernels
+    from radixhashjoin_tpu_torch.config import EngineConfig
+    from radixhashjoin_tpu_torch.models import device_catalog
+    from radixhashjoin_tpu_torch.models.engine import Engine
+    from radixhashjoin_tpu_torch.ops import factorized
+    from radixhashjoin_tpu_torch.utils import limbs
+    case = bench_scale.star_big(fact_rows, np.random.default_rng(23),
+                                bench_scale.SMALL_DIM_KEYS)
+    shrunk = ((factorized, "_BIG_WAVE_ROWS", WINDOW_WAVE_ROWS),
+              (device_catalog, "_NARROW_PLANE_MIN_ROWS", WINDOW_WAVE_ROWS),
+              (limbs, "_BIG_WINDOW_ROWS", WINDOW_ROWS))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in shrunk]
+    builds = []
+    window_build = factorized.scatter_add_window
+
+    def counted_build(acc, idxs, weights, impl="auto"):
+        builds.append(impl)
+        return window_build(acc, idxs, weights, impl)
+    runs = {}
+    try:
+        for mod, name, value in shrunk:
+            setattr(mod, name, value)
+        factorized.scatter_add_window = counted_build
+        n_windows = -(-fact_rows // factorized._win_rows())
+        for scatter, gather in WINDOW_PAIRS:
+            cfg = EngineConfig(ftree_scatter=scatter, ftree_gather=gather)
+            eng = Engine(case.rels, cfg, device=dev)
+            builds.clear()
+            t0 = time.perf_counter()
+            got, launches = kernels.counted(
+                lambda: eng.run_workload([[case.query]]))
+            first_s = time.perf_counter() - t0
+            if got != case.expected:
+                raise AssertionError(f"windows {scatter}/{gather}: {got} "
+                                     f"!= closed form {case.expected}")
+            named = builds.count(scatter)
+            if named < n_windows or len(set(builds)) != 1:
+                raise AssertionError(
+                    f"windows {scatter}/{gather}: {named} window builds "
+                    f"under {scatter!r} for {n_windows} windows "
+                    f"({sorted(set(builds))})")
+            run = {"workload": "star_big_windows", "fact_rows": fact_rows,
+                   "windows": n_windows, "window_builds": named,
+                   "first_s": first_s, "launches": launches,
+                   "ftree_queries":
+                       eng.batch_executor.counters["ftree_queries"]}
+            if dev.type == "cuda":
+                run["sync_check"] = _sync_check(
+                    eng, lambda: eng.run_workload([[case.query]]))
+            runs[f"{scatter}/{gather} windows"] = run
+            del eng
+    finally:
+        factorized.scatter_add_window = window_build
+        for mod, name, value in saved:
+            setattr(mod, name, value)
+    return runs
 
 
 # ---- phase 4: data scale ----
@@ -2015,19 +2105,26 @@ def main() -> int:
                                     for k, p in b["paths"].items()},
                       "ptxas": [ln.strip() for ln in b["log"].splitlines()
                                 if "Used" in ln or "spill" in ln]}))
-    timed, errs = phase_kernels(dev)
-    launches = phase_cli(dev)
-    phase_faults(dev)
-    default_lines = phase_fallback_cli(dev)
-    launches_settings = phase_settings_cli(dev)
-    _lines, dist = phase_scale(dev)
-    _lines, launches_huge = phase_huge(dev)
+    walls = {}
+
+    def timed_phase(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[fn.__name__] = time.perf_counter() - t0
+        return out
+    timed, errs = timed_phase(phase_kernels, dev)
+    launches = timed_phase(phase_cli, dev)
+    timed_phase(phase_faults, dev)
+    default_lines = timed_phase(phase_fallback_cli, dev)
+    launches_settings = timed_phase(phase_settings_cli, dev)
+    _lines, dist = timed_phase(phase_scale, dev)
+    _lines, launches_huge = timed_phase(phase_huge, dev)
     if min(launches_huge[k] for k in WAVE_KERNELS) == 0:
         raise AssertionError(f"the huge phase skipped a kernel: "
                              f"{launches_huge}")
     # the distributed phase's first runs: its four cells and the
     # in-process --mesh 1 run, each counted from zero
-    launches_dist = phase_dist_cli(dev, default_lines)
+    launches_dist = timed_phase(phase_dist_cli, dev, default_lines)
     from radixhashjoin_tpu_torch.parallel import multihost
     multihost.shutdown()                 # phase 4c's world of one
     for _line, first in dist:
@@ -2040,9 +2137,10 @@ def main() -> int:
     launches = {k: launches[k] + launches_settings[k]
                 + launches_huge.get(k, 0) + launches_dist[k]
                 for k in launches}
-    launches_radix = phase_shootout(dev)
-    launches_bench = phase_bench(dev)
-    launches_pipe = phase_dist_pipeline(dev)
+    launches_radix = timed_phase(phase_shootout, dev)
+    launches_bench = timed_phase(phase_bench, dev)
+    launches_pipe = timed_phase(phase_dist_pipeline, dev)
+    print(json.dumps({"phase": "walls", "seconds": walls}))
     launches = {k: launches[k] + launches_bench[k] + launches_pipe[k]
                 for k in launches}
     launches_dist = {k: launches_dist[k] + launches_bench[k]

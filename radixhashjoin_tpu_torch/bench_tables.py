@@ -3,7 +3,7 @@ the main path gives them, and the JAX package's other table variants
 beside them (counterpart of scripts/bench_tables.py and
 scripts/bench_gather.py, the JAX package's message-table shootouts).
 
-    python -m radixhashjoin_tpu_torch.bench_tables [--variants-only]
+    python -m radixhashjoin_tpu_torch.bench_tables [--log-rows 26]
 
 For each case, one JSON line: the kernel first held element-exact
 (torch.equal) against its plain version, then CUDA-event means (WARMUP
@@ -17,8 +17,10 @@ output written once) over the card's 3.35 TB/s. A lookup line also gives
 `sector_gbps`: one 32-byte L2 sector per key over `ms`, the L2-to-SM
 traffic of its random table reads, which bounds a table that lives in
 L2 when it exceeds the DRAM bound. The fused double lookup (`gather2`)
-also gives `two_gathers_ms`, two launches of the lookup kernel on the
-same keys.
+reads a table of interleaved pairs; its library calls are one
+`index_select` of the pairs' rows and two `index_select`s of the two
+tables, and it also gives `two_gathers_ms`, two launches of the lookup
+kernel on the same keys.
 
 Then the variants (`variant_rows`), at JAX's shootout size of 2^24 rows:
 builds `xla`, `sorted`, `hier1024`, `hier2048` (sub-table widths) and
@@ -142,14 +144,15 @@ def gather_cases(dev: torch.device, gen: torch.Generator,
 def gather2_cases(dev: torch.device, gen: torch.Generator,
                   log_rows: int = LOG_ROWS) -> Iterator[dict]:
     """The fused double lookup at the main lookup's shape: 2^26 unsorted
-    keys (a few out of range) into two 2^20-entry tables."""
+    keys (a few out of range) into two 2^20-entry tables, interleaved as
+    the dense probe builds them (int32[2^20, 2])."""
     bins, n = 1 << 20, 1 << log_rows
-    ta, tb = (torch.randint(-2**31, 2**31 - 1, (bins,), generator=gen,
-                            device=dev, dtype=torch.int32) for _ in "ab")
+    pairs = torch.randint(-2**31, 2**31 - 1, (bins, 2), generator=gen,
+                          device=dev, dtype=torch.int32)
     keys = torch.randint(-1000, bins + 1000, (n,), generator=gen,
                          device=dev, dtype=torch.int32)
     yield {"label": f"unsorted n=2^{log_rows} bins=2^20", "main": True,
-           "args": (ta, tb, keys)}
+           "args": (pairs, keys)}
 
 
 def _flat(x) -> torch.Tensor:
@@ -192,15 +195,18 @@ def measure(kind: str, case: dict, iters: int = ITERS) -> dict:
         library = {"index_add_": _bincount_library(idx, w, bins)}
         n_bytes = idx.numel() * 8 + bins * 4
     elif kind == "gather2":
-        ta, tb, keys = args
+        pairs, keys = args
+        ta, tb = (pairs[:, c].contiguous() for c in (0, 1))
 
         def kernel():
-            return kernels.table_gather2_cuda(ta, tb, keys)
+            return kernels.table_gather2_cuda(pairs, keys)
 
         def plain():
             return table_gather2_torch(ta, tb, keys)
+        rows = _gather_library(pairs, keys)["index_select"]
         ca, cb = (_gather_library(t, keys)["index_select"] for t in (ta, tb))
-        library = {"index_select_x2": lambda: (ca(), cb())}
+        library = {"index_select_rows": rows,
+                   "index_select_x2": lambda: (ca(), cb())}
         n = keys.numel()
         n_bytes = n * 12 + 2 * min(ta.numel(), n) * 4
     else:
@@ -364,10 +370,6 @@ def main(argv: Optional[Sequence[str]] = None,
                     "per case")
     p.add_argument("--log-rows", type=int, default=LOG_ROWS,
                    help="rows of the largest cases (others: 4x fewer)")
-    p.add_argument("--variant-log-rows", type=int, default=VARIANT_LOG_ROWS,
-                   help="rows of the variant rows")
-    p.add_argument("--variants-only", action="store_true",
-                   help="only the variant rows")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_tables: needs a CUDA card", file=sys.stderr)
@@ -379,9 +381,8 @@ def main(argv: Optional[Sequence[str]] = None,
                       "ptxas": [ln.strip() for ln in built["log"].splitlines()
                                 if "Used" in ln or "spill" in ln]}),
           file=out, flush=True)
-    if not args.variants_only:
-        run(dev, out, args.log_rows)
-    variant_rows(dev, args.variant_log_rows, out=out)
+    run(dev, out, args.log_rows)
+    variant_rows(dev, out=out)
     return 0
 
 

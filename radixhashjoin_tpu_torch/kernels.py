@@ -235,31 +235,27 @@ def table_gather_cuda(table: torch.Tensor, keys: torch.Tensor
     return out
 
 
-def table_gather2_cuda(table_a: torch.Tensor, table_b: torch.Tensor,
-                       keys: torch.Tensor
+def table_gather2_cuda(pairs: torch.Tensor, keys: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(int32[n], int32[n]): table_a[keys[i]] and table_b[keys[i]] where
-    0 <= keys[i] < len(table_a), else 0; one launch reads each key once.
-    The tables have one length; they are interleaved into one table of
-    (a, b) pairs first (a torch.stack), so that a key's two values come
-    in one 8-byte read. Both results share keys' offset within 16 bytes,
-    as table_gather_cuda's does."""
-    _check("table_a", table_a)
-    _check("table_b", table_b)
+    """(int32[n], int32[n]): pairs[keys[i], 0] and pairs[keys[i], 1] where
+    0 <= keys[i] < len(pairs), else 0; one launch reads each key once and
+    a key's two values in one 8-byte read. pairs: int32[n_bins, 2],
+    contiguous (two tables interleaved). Both results share keys' offset
+    within 16 bytes, as table_gather_cuda's does."""
     _check("keys", keys)
-    if table_a.device != keys.device or table_b.device != keys.device:
-        raise ValueError("table_a/table_b/keys: device mismatch")
-    n_bins = table_a.shape[0]
-    if table_b.shape[0] != n_bins:
-        raise ValueError(f"tables of {n_bins} and {table_b.shape[0]} "
-                         f"entries: expected one length")
+    if pairs.device != keys.device:
+        raise ValueError("pairs/keys: device mismatch")
+    if (pairs.dtype != torch.int32 or pairs.dim() != 2
+            or pairs.shape[1] != 2 or not pairs.is_contiguous()):
+        raise ValueError(f"pairs: expected a contiguous int32[n, 2], got "
+                         f"{pairs.dtype}{tuple(pairs.shape)}")
+    n_bins = pairs.shape[0]
     if n_bins >= 2**31:
         raise ValueError(f"table too long for int32 keys: {n_bins}")
     n = keys.shape[0]
     if n == 0 or n_bins == 0:
         zeros = torch.zeros(n, dtype=torch.int32, device=keys.device)
         return zeros, zeros.clone()
-    pairs = torch.stack([table_a, table_b], dim=1)
     off = keys.data_ptr() % 16 // 4
     out_a = torch.empty(n + off, dtype=torch.int32, device=keys.device)[off:]
     out_b = torch.empty(n + off, dtype=torch.int32, device=keys.device)[off:]

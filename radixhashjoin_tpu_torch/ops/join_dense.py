@@ -10,8 +10,10 @@ binary search:
           T_lo[v]   = exclusive cumsum of T_cnt = first position of v in
                       the value-sorted right side
           counts[i] = T_cnt[lv[i]], lo[i] = T_lo[lv[i]]   (one fused
-                      double lookup, table_gather2: the kernel
-                      rhj_table_gather2, csrc/tables.cu, on a CUDA tensor)
+                      double lookup, table_gather_pairs: the kernel
+                      rhj_table_gather2, csrc/tables.cu, on a CUDA tensor;
+                      T_cnt and T_lo are built into the two columns of
+                      one int32[domain, 2], the kernel's pairs table)
   expand: the same ownership scan as the sort backend (ops/join.py).
 
 Interface-compatible with ops/join.py: probe returns (order, lo,
@@ -23,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from .join import _counts_to_cum, expand_pairs
-from .tables import scatter_table, table_gather, table_gather2
+from .tables import scatter_table, table_gather, table_gather_pairs
 
 
 def dense_probe(lvals: torch.Tensor, lcount, rvals: torch.Tensor, rcount,
@@ -35,14 +37,17 @@ def dense_probe(lvals: torch.Tensor, lcount, rvals: torch.Tensor, rcount,
     li = torch.arange(L, dtype=torch.int32, device=dev)
     ri = torch.arange(R, dtype=torch.int32, device=dev)
     rv = torch.where(ri < rcount, rvals, domain)            # dead -> drop
-    t_cnt = scatter_table(rv, torch.ones(R, dtype=torch.int32, device=dev),
-                          domain)
-    t_lo = torch.cumsum(t_cnt, 0, dtype=torch.int32) - t_cnt
+    pairs = torch.empty(domain, 2, dtype=torch.int32, device=dev)
+    t_cnt, t_lo = pairs[:, 0], pairs[:, 1]
+    t_cnt.copy_(scatter_table(rv, torch.ones(R, dtype=torch.int32,
+                                             device=dev), domain))
+    torch.cumsum(t_cnt, 0, dtype=torch.int32, out=t_lo)
+    t_lo.sub_(t_cnt)
     # stable value-sort of the right side; dead lanes (= domain) sort last
     order = torch.sort(rv, stable=True).indices.to(torch.int32)
     lv = torch.where(li < lcount, lvals, -1)
     lv_safe = lv.clamp(0, domain - 1)
-    cnt_g, lo = table_gather2(t_cnt, t_lo, lv_safe)
+    cnt_g, lo = table_gather_pairs(pairs, lv_safe)
     counts = torch.where(lv >= 0, cnt_g, 0)
     offsets, cum, total = _counts_to_cum(counts)
     return order, lo, offsets, cum, total

@@ -34,6 +34,7 @@ branch on, except that "auto" and "onehot" run the hand kernels:
                         | else xla
     table_gather        auto, onehot: kernel | else xla
     table_gather2       auto, onehot: fused kernel | else two xla gathers
+    table_gather_pairs  the fused kernel on a table of interleaved pairs
 
 Every variant is exact under the callers' contract (weights >= 0, every
 bin's total < 2**31). Where JAX's sums wrap int32, the port sums in int64
@@ -471,15 +472,27 @@ def table_gather(table: torch.Tensor, keys: torch.Tensor,
     return table_gather_xla(table, keys)
 
 
+def table_gather_pairs(pairs: torch.Tensor, keys: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(pairs[keys, 0], pairs[keys, 1]), out-of-range -> 0: the fused
+    double lookup on two tables already interleaved as one int32[n, 2]
+    (the dense probe builds its count and offset tables so). A CPU tensor
+    takes the plain version, a CUDA tensor the kernel rhj_table_gather2."""
+    if keys.device.type == "cpu":
+        return table_gather2_torch(pairs[:, 0], pairs[:, 1], keys)
+    return kernels.table_gather2_cuda(pairs, keys)
+
+
 def table_gather2(table_a: torch.Tensor, table_b: torch.Tensor,
                   keys: torch.Tensor, impl: str = "auto"
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(table_a[keys], table_b[keys]), out-of-range -> 0; the tables have
     one length. "auto" and "onehot" read each key once through the fused
     kernel (rhj_table_gather2; JAX's one-hot matmul of both tables'
-    bytes); any other name takes two library gathers."""
+    bytes), on the two tables interleaved first; any other name takes two
+    library gathers."""
     if impl in KERNEL_IMPLS:
         if keys.device.type == "cpu":
             return table_gather2_torch(table_a, table_b, keys)
-        return kernels.table_gather2_cuda(table_a, table_b, keys)
+        return table_gather_pairs(torch.stack((table_a, table_b), 1), keys)
     return table_gather_xla(table_a, keys), table_gather_xla(table_b, keys)

@@ -404,20 +404,6 @@ def test_cli_default_device_exits_2_without_a_card(mod):
     assert "--device cpu" in proc.stderr and proc.stdout == ""
 
 
-def test_bench_ab_exits_2_without_a_card():
-    """bench_ab.py (run as a file, with the checkout to time) refuses to
-    run without a card, printing no result."""
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA card is present")
-    proc = subprocess.run([sys.executable,
-                           os.path.join("radixhashjoin_tpu_torch",
-                                        "bench_ab.py"), "--root", REPO],
-                          capture_output=True, text=True, cwd=REPO,
-                          timeout=240)
-    assert proc.returncode == 2, proc.stderr
-    assert "CUDA card" in proc.stderr and proc.stdout == ""
-
-
 @pytest.mark.parametrize("mod", MODULES)
 def test_import_leaves_jax_out(mod):
     code = (f"import sys\nimport radixhashjoin_tpu_torch.{mod}\n"

@@ -77,7 +77,7 @@ def test_gather_kernel_exact(dev, n, n_bins):
 
 def _gather2_exact(ta, tb, keys):
     before = kernels.LAUNCHES["gather2"]
-    ga, gb = kernels.table_gather2_cuda(ta, tb, keys)
+    ga, gb = kernels.table_gather2_cuda(torch.stack((ta, tb), 1), keys)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["gather2"] == before + 1
     assert torch.equal(ga, table_gather_torch(ta, keys))
@@ -98,9 +98,10 @@ def test_gather2_kernel_exact(dev, n_bins):
                              device=dev, dtype=torch.int32)
         for offset in (0, 1, 2, 3):
             _gather2_exact(ta, tb, base[offset:offset + n])
-    with pytest.raises(ValueError, match="one length"):
-        kernels.table_gather2_cuda(ta, tb[:0] if n_bins > 1 else
-                                   tb.repeat(2), base)
+    # the pairs table is one contiguous int32[n, 2]
+    for bad in (ta, torch.stack((ta, tb), 0), torch.stack((ta, tb), 1).t()):
+        with pytest.raises(ValueError, match=r"int32\[n, 2\]"):
+            kernels.table_gather2_cuda(bad, base)
 
 
 @pytest.mark.parametrize("impl", ["mxu", "hier", "sorted", "xla",

@@ -443,6 +443,21 @@ def test_gather2_matches_jax(case):
         np.testing.assert_array_equal(gb.numpy(), want[1])
 
 
+@pytest.mark.parametrize("case", LOOKUP_VARIANT_CASES)
+def test_gather_pairs_matches_jax(case):
+    """table_gather_pairs (the dense probe's lookup: both tables in the
+    columns of one int32[n, 2], as the kernel reads them) equals JAX's
+    table_gather2 on the two tables."""
+    rng = np.random.default_rng(len(case) + 19)
+    ta, keys = _lookup_input(case, rng)
+    tb = rng.integers(-2**31, 2**31 - 1, ta.shape[0]).astype(np.int32)
+    ja, jb = jtables.table_gather2(jnp.asarray(ta), jnp.asarray(tb),
+                                   jnp.asarray(keys), "onehot")
+    ga, gb = ptables.table_gather_pairs(_t(np.stack([ta, tb], 1)), _t(keys))
+    np.testing.assert_array_equal(ga.numpy(), np.asarray(ja))
+    np.testing.assert_array_equal(gb.numpy(), np.asarray(jb))
+
+
 @pytest.mark.parametrize("variant", ["mxu", "hier", "onehot", "hier_gather"])
 def test_one_hot_chunks(variant, monkeypatch):
     """With ONEHOT_CHUNK_BYTES shrunk so that a call takes many chunks
@@ -501,7 +516,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.table_gather_cuda(x, x)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.table_gather2_cuda(x, x, x)
+        kernels.table_gather2_cuda(torch.zeros(4, 2, dtype=torch.int32), x)
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
