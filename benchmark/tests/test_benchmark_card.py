@@ -1,0 +1,39 @@
+"""On the card (marker `cuda`; skipped without one): a cell through the
+harness at a reduced size comes out correct, and the control (the
+float32-summed reference in the program's place, benchmark/control.py)
+does not.
+
+    python -m pytest benchmark/tests/test_benchmark_card.py -m cuda
+"""
+
+import pytest
+import torch
+
+from benchmark import harness
+from benchmark.control import Control
+from benchmark.spec import load_benchmark
+from benchmark.tests.test_benchmark_cells import SEED, tiny
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("workload", [w["name"] for w in
+                                      load_benchmark()["workloads"]])
+def test_the_program_is_correct_and_the_control_is_not(card, workload):
+    cell = tiny(workload)
+    cell.config = dict(cell.config, rows={
+        "lineorder": 2_000_000, "date": 2556, "customer": 10_000,
+        "supplier": 700, "part": 40_000})
+    ok = harness.run_cell(cell, SEED, 1.0, False, card, 0.0)
+    assert ok["correct"], ok["checks"]
+    control = harness.run_cell(cell, SEED, 1.0, False, card, 0.0,
+                               engine_factory=Control)
+    assert not control["correct"]
+    assert control["checks"]["mismatched_lines"]["value"] > 0
