@@ -34,6 +34,11 @@ host into exact u64 values. `counters`: dispatches (stage runs),
 readbacks (device-to-host copies), spec retries, factorized queries.
 `profiler` (utils/profiling.py, EngineConfig(profile=True)) times the
 per-op path's operators and each stage, at the reference's record sites.
+Spans (utils/profiling.py `span`, armed only under a torch.profiler
+capture) name the per-op path's layers: batch.run, batch.readback,
+filter, join.probe / join.expand / join.match and aggregate, with the
+sort join's padded and live row counts (join.sorted_rows,
+join.live_rows).
 There is no route to the oracle, to the per-query executor or to the
 CPU.
 """
@@ -54,7 +59,7 @@ from ..ops.stage import part_shape, run_stage
 from ..ops.terminal import channel_spec, terminal_join_and_project
 from ..storage import Relation
 from ..utils.limbs import U64_MASK, combine_channels
-from ..utils.profiling import OpProfiler
+from ..utils.profiling import OpProfiler, armed, count, span
 from ..workload import Query
 from .device_catalog import DeviceCatalog
 from .planner import _propagate_join, _rough_filter_estimate
@@ -78,7 +83,8 @@ class _QState:
     __slots__ = ("q", "live_rows", "live_cnt", "mat", "slot_row", "icount",
                  "null", "flags", "probe", "fresh_slot", "sums", "terminal",
                  "next_join", "pending", "mat_rows", "defers", "speculate",
-                 "est", "flag_refs", "spec_refs", "probe_total_ref")
+                 "est", "flag_refs", "spec_refs", "probe_total_ref",
+                 "probe_live")
 
     def __init__(self, q: Query, speculate: bool = True):
         self.q = q
@@ -90,6 +96,7 @@ class _QState:
         self.null = False                      # decided on host (total 0)
         self.flags: List[torch.Tensor] = []    # device bools, OR'd at the end
         self.probe = None                      # (order, lo, off, cum, total)
+        self.probe_live = None                 # its live (L, R), when counted
         self.fresh_slot = None
         # per projection: list of (kind, partials, plane shift); an
         # empty list = never-joined slot (sum 0). Wide (u64) projection
@@ -146,22 +153,24 @@ class BatchExecutor:
         for f in q.filters:
             col = cat.col(q.slots[f.slot], f.col)
             opc, const = cat.encode_filter(f.op, f.value)
-            if f.slot in pristine:
-                # first filter on the slot: scan the column directly
-                n = cat.relations[q.slots[f.slot]].num_tuples
-                rows, cnt = self.profiler.record(
-                    "filter", filter_full(col, n, const, opc, cat.bucket(n)),
-                    (col,))
-                pristine.discard(f.slot)
-            else:
-                # the column is point-gathered, not scanned
-                rows, cnt = self.profiler.record(
-                    "filter",
-                    filter_live(st.live_rows[f.slot], st.live_cnt[f.slot],
-                                col, const, opc),
-                    (st.live_rows[f.slot],))
-            st.live_rows[f.slot], st.live_cnt[f.slot] = rows, cnt
-            st.flags.append(cnt == 0)   # device bool; NULL if ever true
+            with span("filter", self.device):
+                if f.slot in pristine:
+                    # first filter on the slot: scan the column directly
+                    n = cat.relations[q.slots[f.slot]].num_tuples
+                    rows, cnt = self.profiler.record(
+                        "filter",
+                        filter_full(col, n, const, opc, cat.bucket(n)),
+                        (col,))
+                    pristine.discard(f.slot)
+                else:
+                    # the column is point-gathered, not scanned
+                    rows, cnt = self.profiler.record(
+                        "filter",
+                        filter_live(st.live_rows[f.slot],
+                                    st.live_cnt[f.slot], col, const, opc),
+                        (st.live_rows[f.slot],))
+                st.live_rows[f.slot], st.live_cnt[f.slot] = rows, cnt
+                st.flags.append(cnt == 0)   # device bool; NULL if ever true
         return st
 
     def _join_wave_probe(self, st: _QState, k: int) -> bool:
@@ -177,37 +186,40 @@ class BatchExecutor:
 
         if s1 == s2:
             # same-slot predicate: row filter, never NULL
-            if s1 not in st.slot_row:
-                # fresh slot: creates a singleton intermediate and, like
-                # case 1, wipes any other component
-                rows, cnt = self.profiler.record(
-                    "eq_filter",
-                    eq_filter_rows(colA, colB, st.live_rows[s1],
-                                   st.live_cnt[s1]),
-                    (st.live_rows[s1],))
-                st.mat = rows[None]
-                st.slot_row = {s1: 0}
-                st.icount = cnt
-            else:
-                st.mat, st.icount = self.profiler.record(
-                    "eq_filter",
-                    eq_filter_matrix(colA, colB, st.mat, st.slot_row[s1],
-                                     st.slot_row[s2], st.icount),
-                    (st.mat,))
+            with span("join.match", self.device):
+                if s1 not in st.slot_row:
+                    # fresh slot: creates a singleton intermediate and,
+                    # like case 1, wipes any other component
+                    rows, cnt = self.profiler.record(
+                        "eq_filter",
+                        eq_filter_rows(colA, colB, st.live_rows[s1],
+                                       st.live_cnt[s1]),
+                        (st.live_rows[s1],))
+                    st.mat = rows[None]
+                    st.slot_row = {s1: 0}
+                    st.icount = cnt
+                else:
+                    st.mat, st.icount = self.profiler.record(
+                        "eq_filter",
+                        eq_filter_matrix(colA, colB, st.mat,
+                                         st.slot_row[s1], st.slot_row[s2],
+                                         st.icount),
+                        (st.mat,))
             return False
 
         j1, j2 = s1 in st.slot_row, s2 in st.slot_row
         if j1 and j2:
             # case 3: row filter; NULL iff pair set empty -> deferred flag
-            nonempty = self.join.any_common_matrix(
-                colA, colB, st.mat, st.slot_row[s1], st.slot_row[s2],
-                st.icount)
-            st.mat, st.icount = self.profiler.record(
-                "eq_filter",
-                eq_filter_matrix(colA, colB, st.mat, st.slot_row[s1],
-                                 st.slot_row[s2], st.icount),
-                (st.mat,))
-            st.flags.append(~nonempty)
+            with span("join.match", self.device):
+                nonempty = self.join.any_common_matrix(
+                    colA, colB, st.mat, st.slot_row[s1], st.slot_row[s2],
+                    st.icount)
+                st.mat, st.icount = self.profiler.record(
+                    "eq_filter",
+                    eq_filter_matrix(colA, colB, st.mat, st.slot_row[s1],
+                                     st.slot_row[s2], st.icount),
+                    (st.mat,))
+                st.flags.append(~nonempty)
             return False
 
         # factorized terminal join (dense backend): the last join's output
@@ -278,29 +290,40 @@ class BatchExecutor:
             st.terminal = True
             return False
 
-        if not j1 and not j2:
-            # case 1: probe between live sets
-            st.probe = self.profiler.record(
-                "probe",
-                self.join.probe_rows(colA, st.live_rows[s1],
-                                     st.live_cnt[s1], colB,
-                                     st.live_rows[s2], st.live_cnt[s2]),
-                (st.live_rows[s1], st.live_rows[s2]))
-            st.fresh_slot = None
-        else:
-            # case 2: probe intermediate (full side) against fresh live set
-            if j1:
-                full, fresh, col_full, col_fresh = s1, s2, colA, colB
+        with span("join.probe", self.device):
+            if not j1 and not j2:
+                # case 1: probe between live sets
+                st.probe = self.profiler.record(
+                    "probe",
+                    self.join.probe_rows(colA, st.live_rows[s1],
+                                         st.live_cnt[s1], colB,
+                                         st.live_rows[s2], st.live_cnt[s2]),
+                    (st.live_rows[s1], st.live_rows[s2]))
+                st.fresh_slot = None
+                left, lcount = st.live_rows[s1].shape[0], st.live_cnt[s1]
+                fresh = s2
             else:
-                full, fresh, col_full, col_fresh = s2, s1, colB, colA
-            st.probe = self.profiler.record(
-                "probe",
-                self.join.probe_matrix(col_full, st.mat, st.slot_row[full],
-                                       st.icount, col_fresh,
-                                       st.live_rows[fresh],
-                                       st.live_cnt[fresh]),
-                (st.mat[0], st.live_rows[fresh]))
-            st.fresh_slot = fresh
+                # case 2: probe intermediate (full side) against fresh
+                # live set
+                if j1:
+                    full, fresh, col_full, col_fresh = s1, s2, colA, colB
+                else:
+                    full, fresh, col_full, col_fresh = s2, s1, colB, colA
+                st.probe = self.profiler.record(
+                    "probe",
+                    self.join.probe_matrix(col_full, st.mat,
+                                           st.slot_row[full], st.icount,
+                                           col_fresh, st.live_rows[fresh],
+                                           st.live_cnt[fresh]),
+                    (st.mat[0], st.live_rows[fresh]))
+                st.fresh_slot = fresh
+                left, lcount = st.mat.shape[1], st.icount
+        st.probe_live = None
+        if self.join.kind == "sort" and armed():
+            # rows entering the sort (padded L + R, known on the host);
+            # the live ones ride in the wave's readback (_read_totals)
+            count("join.sorted_rows", left + st.live_rows[fresh].shape[0])
+            st.probe_live = (lcount, st.live_cnt[fresh])
         return True
 
     def _join_wave_expand(self, st: _QState, k: int, total: int) -> None:
@@ -314,23 +337,25 @@ class BatchExecutor:
         j = st.q.joins[k]
         order, lo, off, cum, _ = st.probe
         out_size = self.catalog.bucket(total)
-        if st.fresh_slot is None:
-            # case 1 discards any other slot's data
-            st.mat = self.profiler.record(
-                "expand",
-                self.join.expand_fresh_pair(order, lo, off, cum,
-                                            st.live_rows[j.slot1],
-                                            st.live_rows[j.slot2], out_size),
-                (order, lo))
-            st.slot_row = {j.slot1: 0, j.slot2: 1}
-        else:
-            st.mat = self.profiler.record(
-                "expand",
-                self.join.expand_attach_fresh(
-                    order, lo, off, cum, st.mat,
-                    st.live_rows[st.fresh_slot], out_size),
-                (order, lo, st.mat))
-            st.slot_row[st.fresh_slot] = st.mat.shape[0] - 1
+        with span("join.expand", self.device):
+            if st.fresh_slot is None:
+                # case 1 discards any other slot's data
+                st.mat = self.profiler.record(
+                    "expand",
+                    self.join.expand_fresh_pair(order, lo, off, cum,
+                                                st.live_rows[j.slot1],
+                                                st.live_rows[j.slot2],
+                                                out_size),
+                    (order, lo))
+                st.slot_row = {j.slot1: 0, j.slot2: 1}
+            else:
+                st.mat = self.profiler.record(
+                    "expand",
+                    self.join.expand_attach_fresh(
+                        order, lo, off, cum, st.mat,
+                        st.live_rows[st.fresh_slot], out_size),
+                    (order, lo, st.mat))
+                st.slot_row[st.fresh_slot] = st.mat.shape[0] - 1
         st.icount = total
         st.probe = None
 
@@ -338,17 +363,20 @@ class BatchExecutor:
         if st.terminal:        # sums already produced by the fused call
             return
         cat = self.catalog
-        for p in st.q.projections:
-            row = st.slot_row.get(p.slot)
-            if row is None:
-                st.sums.append([])
-                continue
-            st.sums.append([
-                ("limb", self.profiler.record(
-                    "aggregate",
-                    gather_partials_matrix(plane, st.mat, row, st.icount),
-                    (st.mat[0],)), sh)
-                for plane, sh in cat.int32_planes(st.q.slots[p.slot], p.col)])
+        with span("aggregate", self.device):
+            for p in st.q.projections:
+                row = st.slot_row.get(p.slot)
+                if row is None:
+                    st.sums.append([])
+                    continue
+                st.sums.append([
+                    ("limb", self.profiler.record(
+                        "aggregate",
+                        gather_partials_matrix(plane, st.mat, row,
+                                               st.icount),
+                        (st.mat[0],)), sh)
+                    for plane, sh in cat.int32_planes(st.q.slots[p.slot],
+                                                      p.col)])
 
     # ---- speculative expansion sizing (models/stats.py estimator) ----
 
@@ -1299,8 +1327,9 @@ class BatchExecutor:
         need = [v for v in need if v not in host]
         if not need:
             return
-        self.counters["readbacks"] += 1
-        flat = torch.cat([vecs[v] for v in need]).cpu().tolist()
+        with span("batch.readback"):
+            self.counters["readbacks"] += 1
+            flat = torch.cat([vecs[v] for v in need]).cpu().tolist()
         off = 0
         for v in need:
             n = vecs[v].shape[0]
@@ -1393,28 +1422,45 @@ class BatchExecutor:
         """Per-query sums (None = NULL line) for one batch."""
         if not queries:
             return []
-        if self.join.kind == "dense" and self.config.fuse_stages:
-            return self._run_batch_fused(queries)
-        states = [self._init_and_filter(q) for q in queries]
-        max_joins = max((len(st.q.joins) for st in states), default=0)
-        for k in range(max_joins):
-            wave = []
+        with span("batch.run"):
+            if self.join.kind == "dense" and self.config.fuse_stages:
+                return self._run_batch_fused(queries)
+            states = [self._init_and_filter(q) for q in queries]
+            max_joins = max((len(st.q.joins) for st in states), default=0)
+            for k in range(max_joins):
+                wave = []
+                for st in states:
+                    if st.null or k >= len(st.q.joins):
+                        continue
+                    if self._join_wave_probe(st, k):
+                        wave.append(st)
+                if wave:
+                    totals = self._read_totals(wave)
+                    for st, total in zip(wave, totals):
+                        self._join_wave_expand(st, k, total)
             for st in states:
-                if st.null or k >= len(st.q.joins):
-                    continue
-                if self._join_wave_probe(st, k):
-                    wave.append(st)
-            if wave:
-                # one stacked readback for the whole wave's totals
-                self.counters["readbacks"] += 1
-                totals = torch.stack([st.probe[4] for st in wave]
-                                     ).cpu().tolist()
-                for st, total in zip(wave, totals):
-                    self._join_wave_expand(st, k, total)
-        for st in states:
-            if not st.null:
-                self._projections(st)
-        return self._final_sweep(states)
+                if not st.null:
+                    self._projections(st)
+            return self._final_sweep(states)
+
+    def _read_totals(self, wave: List[_QState]) -> List[int]:
+        """The wave's probe totals, in ONE stacked readback. The live row
+        counts of probes that counted them (under a capture) are further
+        inputs of the same stack: no kernel and no sync of their own."""
+        live_host, live_dev = 0, []
+        for st in wave:
+            for c in st.probe_live or ():
+                if isinstance(c, torch.Tensor):
+                    live_dev.append(c)
+                else:
+                    live_host += c
+        with span("batch.readback"):
+            self.counters["readbacks"] += 1
+            host = torch.stack([st.probe[4] for st in wave] + live_dev
+                               ).cpu().tolist()
+        if any(st.probe_live for st in wave):
+            count("join.live_rows", live_host + sum(host[len(wave):]))
+        return host[:len(wave)]
 
     def _final_sweep(self, states: List[_QState]
                      ) -> List[Optional[List[int]]]:
@@ -1423,11 +1469,13 @@ class BatchExecutor:
         flags = [f for st in states if not st.null for f in st.flags]
         parts = [e[1] for st in states if not st.null
                  for s in st.sums for e in s]
-        segs = ([torch.stack(flags).to(torch.int64)] if flags else []) + parts
         host: list = []
-        if segs:
-            self.counters["readbacks"] += 1
-            host = torch.cat(segs).cpu().tolist()
+        if flags or parts:
+            with span("batch.readback"):
+                segs = ([torch.stack(flags).to(torch.int64)] if flags
+                        else []) + parts
+                self.counters["readbacks"] += 1
+                host = torch.cat(segs).cpu().tolist()
         results: List[Optional[List[int]]] = []
         fi, pi = 0, len(flags)
         for st in states:

@@ -1,15 +1,22 @@
 """Per-operator profiling and roofline accounting (counterpart:
-radixhashjoin_tpu/utils/profiling.py).
+radixhashjoin_tpu/utils/profiling.py), and the batch driver's spans.
 
 * OpProfiler: per-operator call counts, wall time (synchronized), bytes
   touched and the share of the card's published memory bandwidth they
   reach (the engine is gather/scatter-bound, so bandwidth is the roofline
   that matters).
-* trace(log_dir): a torch.profiler capture in TensorBoard format.
+* span(name, device) / count(name, n): the layers of the batch driver
+  (models/batch.py), armed only while a torch.profiler capture records.
+  A span then opens `record_function("rhj." + name)`, so the capture
+  holds it on the device activity's clock, and adds its host seconds to
+  SPANS; given a CUDA device it also adds its stream seconds: the time
+  between two CUDA events on the current stream, its kernels and any
+  device idle between them alike. `count` adds to a counter there.
+  Unarmed, both cost one read of a module global.
 
-Enable with EngineConfig(profile=True) (the CLI's --profile): the batch
-executor then synchronizes after every operator it records (accurate
-per-operator times, a slower end-to-end run) and
+Enable OpProfiler with EngineConfig(profile=True) (the CLI's --profile):
+the batch executor then synchronizes after every operator it records
+(accurate per-operator times, a slower end-to-end run) and
 `engine.batch_executor.profiler.report()` renders the table. With
 profile=False `record` returns its argument untouched and synchronizes
 nothing.
@@ -17,12 +24,14 @@ nothing.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import defaultdict
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 # Published HBM bandwidth by CUDA device name. Other cards and the CPU
 # report no roofline rather than a wrong one.
@@ -128,19 +137,98 @@ class OpProfiler:
         self.ops.clear()
 
 
-def trace(log_dir: str):
-    """A torch.profiler capture (host and, with a card, device activity)
-    written to `log_dir` in TensorBoard format."""
-    from torch.profiler import (ProfilerActivity, profile,
-                                tensorboard_trace_handler)
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    return profile(activities=activities,
-                   on_trace_ready=tensorboard_trace_handler(log_dir))
-
-
 def arr_bytes(*arrays) -> int:
     """Total nbytes of the tensors among `arrays` (tuples and lists
     walked)."""
     return sum(t.nbytes for t in _tensors(arrays))
+
+
+# ---- spans: the batch driver's layers, armed by a torch.profiler capture
+
+# name -> {"calls", "host_s", "stream_s", "count"}, accumulated only while
+# a capture records (like kernels.LAUNCHES, for the process)
+SPANS: Dict[str, Dict[str, float]] = {}
+# (name, start event, end event) of stream-timed spans not yet resolved
+_PENDING: List[Tuple[str, torch.cuda.Event, torch.cuda.Event]] = []
+_OFF = contextlib.nullcontext()
+
+
+def _totals(name: str) -> Dict[str, float]:
+    t = SPANS.get(name)
+    if t is None:
+        t = SPANS[name] = {"calls": 0, "host_s": 0.0, "stream_s": 0.0,
+                           "count": 0}
+    return t
+
+
+class _Span:
+    __slots__ = ("name", "stream", "range", "start", "t0")
+
+    def __init__(self, name: str, stream):
+        self.name = name
+        self.stream = stream
+
+    def __enter__(self):
+        self.range = torch.profiler.record_function("rhj." + self.name)
+        self.range.__enter__()
+        if self.stream is not None:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record(self.stream)
+        self.t0 = time.perf_counter_ns()
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter_ns() - self.t0
+        if self.stream is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(self.stream)
+            _PENDING.append((self.name, self.start, end))
+        self.range.__exit__(*exc)
+        t = _totals(self.name)
+        t["calls"] += 1
+        t["host_s"] += dt / 1e9
+        return False
+
+
+def span(name: str, device: Optional[torch.device] = None):
+    """A context that, while a torch.profiler capture records, opens
+    `record_function("rhj." + name)` and adds its host seconds to
+    SPANS[name]. Given a CUDA `device`, two CUDA events on the device's
+    current stream also time it, resolved by `span_totals()`: that is
+    stream time, the span's kernels and the device's idle between them
+    (the host launching slower than the card runs), not device-busy time.
+    Stream-timed spans do not nest, so their intervals do not overlap.
+    With no capture recording it returns one shared no-op context (one
+    global read: no range, no clock, no event)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    stream = (torch.cuda.current_stream(device)
+              if device is not None and device.type == "cuda" else None)
+    return _Span(name, stream)
+
+
+def count(name: str, n: int) -> None:
+    """Add `n` to SPANS[name]["count"] while a capture records."""
+    if _autograd_profiler._is_profiler_enabled:
+        _totals(name)["count"] += n
+
+
+def armed() -> bool:
+    """Whether spans and counters record now (a capture is on)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def span_totals() -> Dict[str, Dict[str, float]]:
+    """A copy of SPANS with every pending stream interval added to its
+    span's stream_s: each end event is waited for (after the measured
+    window, never inside it) and its elapsed time read."""
+    for name, start, end in _PENDING:
+        end.synchronize()
+        SPANS[name]["stream_s"] += start.elapsed_time(end) / 1e3
+    _PENDING.clear()
+    return {name: dict(t) for name, t in SPANS.items()}
+
+
+def reset_spans() -> None:
+    """Forget every span, counter and pending stream interval."""
+    SPANS.clear()
+    _PENDING.clear()
