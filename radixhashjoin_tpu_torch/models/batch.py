@@ -37,8 +37,9 @@ per-op path's operators and each stage, at the reference's record sites.
 Spans (utils/profiling.py `span`, armed only under a torch.profiler
 capture) name the per-op path's layers: batch.run, batch.readback,
 filter, join.probe / join.expand / join.match and aggregate, with the
-sort join's padded and live row counts (join.sorted_rows,
-join.live_rows).
+sort join's padded and live right rows that it sorts (join.sorted_rows,
+join.live_rows) and the padded left lanes that it binary-searches
+(join.searched_rows).
 There is no route to the oracle, to the per-query executor or to the
 CPU.
 """
@@ -96,7 +97,7 @@ class _QState:
         self.null = False                      # decided on host (total 0)
         self.flags: List[torch.Tensor] = []    # device bools, OR'd at the end
         self.probe = None                      # (order, lo, off, cum, total)
-        self.probe_live = None                 # its live (L, R), when counted
+        self.probe_live = None                 # (its live R,), when counted
         self.fresh_slot = None
         # per projection: list of (kind, partials, plane shift); an
         # empty list = never-joined slot (sum 0). Wide (u64) projection
@@ -300,7 +301,7 @@ class BatchExecutor:
                                          st.live_rows[s2], st.live_cnt[s2]),
                     (st.live_rows[s1], st.live_rows[s2]))
                 st.fresh_slot = None
-                left, lcount = st.live_rows[s1].shape[0], st.live_cnt[s1]
+                left = st.live_rows[s1].shape[0]
                 fresh = s2
             else:
                 # case 2: probe intermediate (full side) against fresh
@@ -317,13 +318,15 @@ class BatchExecutor:
                                            st.live_cnt[fresh]),
                     (st.mat[0], st.live_rows[fresh]))
                 st.fresh_slot = fresh
-                left, lcount = st.mat.shape[1], st.icount
+                left = st.mat.shape[1]
         st.probe_live = None
         if self.join.kind == "sort" and armed():
-            # rows entering the sort (padded L + R, known on the host);
-            # the live ones ride in the wave's readback (_read_totals)
-            count("join.sorted_rows", left + st.live_rows[fresh].shape[0])
-            st.probe_live = (lcount, st.live_cnt[fresh])
+            # the right rows entering the sort and the left lanes searched
+            # (padded, known on the host); the live right count rides in
+            # the wave's readback (_read_totals)
+            count("join.sorted_rows", st.live_rows[fresh].shape[0])
+            count("join.searched_rows", left)
+            st.probe_live = (st.live_cnt[fresh],)
         return True
 
     def _join_wave_expand(self, st: _QState, k: int, total: int) -> None:

@@ -1,11 +1,20 @@
-"""Equi-join as sort + scans + expansion (counterpart:
+"""Equi-join as sort + binary search + expansion (counterpart:
 radixhashjoin_tpu/ops/join.py:30-139).
 
-The per-query executor's join (models/executor.py): one stable sort of
-the combined [right, left] values gives every left value its first match
-in the sorted right side and its match count; the host reads the exact
-pair total back, picks a padded output size, and `expand_pairs`
-materializes (left index, right index) pairs at that size.
+The per-query executor's join (models/executor.py): a stable sort of
+the right side and two binary searches of every left value into it give
+each left value its first match in the sorted right side and its match
+count; the host reads the exact pair total back, picks a padded output
+size, and `expand_pairs` materializes (left index, right index) pairs at
+that size.
+
+The reference sorts the combined [right, left] values once and scatters
+the results back to operand order, because on the TPU a search is
+itself a sort of both sides. On this card `torch.searchsorted` is a
+plain binary search, and the joins' right side is a dimension whose
+sorted values sit in L2: so only the right side is sorted, the left
+lanes are only looked up, and nothing is scattered back. The outputs
+are the reference's, bit for bit.
 
 Padding sentinels: left values -1 (match nothing, all data >= 0), right
 values INT32_MAX (the catalog keeps data <= INT32_MAX - 1).
@@ -13,11 +22,9 @@ values INT32_MAX (the catalog keeps data <= INT32_MAX - 1).
 The sorts are `torch.sort(..., stable=True)`: the reference's
 `jnp.argsort(stable=True)` is XLA's comparison sort outside any Pallas
 kernel, and PyTorch's CUDA sort is not stable by default (then `order`
-and `lo` differ on ties). Scatters that may drop lanes aim dropped
-lanes at a spare slot past the end, since a CUDA scatter with an
-out-of-range index device-asserts. Where the reference takes a running
-max over sorted data, the port binary-searches the sorted data for the
-same values: torch.cummax runs a 1-D tensor as one block on the card.
+differs on ties). Where the reference takes a running max over sorted
+data, the port binary-searches the sorted data for the same values:
+torch.cummax runs a 1-D tensor as one block on the card.
 """
 
 from __future__ import annotations
@@ -54,24 +61,10 @@ def _counts_to_cum(counts: torch.Tensor):
             _total_or_overflow(cum64))
 
 
-def _scatter_drop(n: int, dest: torch.Tensor, src: torch.Tensor
-                  ) -> torch.Tensor:
-    """int32[n]: out[dest[i]] = src[i] for dest[i] in [0, n), else
-    dropped into a spare slot past the end (the reference's
-    `.at[dest].set(src, mode="drop")` with unique live destinations)."""
-    dest = torch.where((dest >= 0) & (dest < n), dest, n)
-    out = torch.zeros(n + 1, dtype=torch.int32, device=src.device)
-    out.index_copy_(0, dest.long(), src)
-    return out[:n]
-
-
 def probe_count(lvals: torch.Tensor, lcount, rvals: torch.Tensor, rcount):
-    """Count matches per left element.
-
-    ONE stable sort of the combined [right, left] value vector + O(n)
-    scans: within a tie run the stable sort places rights (lower input
-    index) before lefts, so an inclusive right-count scan read at a
-    left's position gives lo + matches directly.
+    """Count matches per left element: one stable sort of the masked
+    right values, and a left and a right binary search of every masked
+    left value into them.
 
     Returns (order, lo, offsets, cum, total):
       order   — int32[R] stable argsort of the (sentinel-masked) right values
@@ -87,23 +80,10 @@ def probe_count(lvals: torch.Tensor, lcount, rvals: torch.Tensor, rcount):
     ri = torch.arange(R, dtype=torch.int32, device=dev)
     lv = torch.where(li < lcount, lvals, -1)
     rv = torch.where(ri < rcount, rvals, RIGHT_SENTINEL)
-    s, ord_all = torch.sort(torch.cat([rv, lv]), stable=True)
-    ord_all = ord_all.to(torch.int32)
-    isr = (ord_all < R).to(torch.int32)
-    rr = torch.cumsum(isr, 0, dtype=torch.int32)   # rights at positions <= i
-    e = rr - isr                                   # rights strictly before i
-    # start of each equal-value run: the first position of s[i] in the
-    # sorted s (the reference's running max over run-start flags)
-    run_start = torch.searchsorted(s, s)
-    lo_at = e.index_select(0, run_start)          # rights before the run
-    cnt_at = rr - lo_at                            # rights in the run (all
-    #                                                precede its lefts)
-    # scatter back to original operand order; `order` writes in sorted
-    # order (e rises along the rights), the rest go to the spare slot
-    ldest = torch.where(isr == 0, ord_all - R, L)
-    lo = _scatter_drop(L, ldest, lo_at)
-    counts = _scatter_drop(L, ldest, cnt_at)
-    order = _scatter_drop(R, torch.where(isr == 1, e, R), ord_all)
+    rs, ridx = torch.sort(rv, stable=True)
+    order = ridx.to(torch.int32)
+    lo = torch.searchsorted(rs, lv, side="left", out_int32=True)
+    counts = torch.searchsorted(rs, lv, side="right", out_int32=True) - lo
     offsets, cum, total = _counts_to_cum(counts)
     return order, lo, offsets, cum, total
 

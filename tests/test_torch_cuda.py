@@ -1,6 +1,7 @@
 """Card-only tests of the port: the hand-written CUDA kernels against
 their plain PyTorch versions, the partition and radix sort against
-torch.sort(stable=True), the engine on a CUDA device against the port's
+torch.sort(stable=True), the sort join's probe on the card against the
+CPU, the engine on a CUDA device against the port's
 oracle, the per-query executor and the wave-batched materialized
 fallback (terminal joins, the dense pair-set test, deferred attaches,
 every query shape through the batch path) on CUDA against their CPU
@@ -557,6 +558,33 @@ def test_terminal_join_cuda_matches_cpu(dev, ex_kind, with_mult):
     assert all(torch.equal(a, b) for a, b in zip(outs[0][1], outs[1][1]))
     assert all(kernels.LAUNCHES[k] > before[k] for k in ("bincount",
                                                          "gather"))
+
+
+@pytest.mark.parametrize("R", [4096, 1 << 20])
+def test_sort_probe_cuda_matches_cpu(dev, R):
+    """The sort join's probe (ops/join.py probe_count: a stable sort of
+    the right side, a left and a right binary search of every left lane)
+    gives the card the CPU's five outputs, at a fact's width of left
+    lanes, with dead lanes holding garbage on both sides, ties in the
+    right, and the live counts as 0-d device tensors on the card."""
+    from radixhashjoin_tpu_torch.ops.join import probe_count
+    L = 1 << 24
+    lc, rc = L - 12_345, R - 77
+    g = torch.Generator().manual_seed(R)
+    lv = torch.randint(0, R, (L,), generator=g, dtype=torch.int32)
+    rv = torch.randint(0, R, (R,), generator=g, dtype=torch.int32)
+    lv[lc:] = torch.randint(-3, 2**31 - 1, (L - lc,), generator=g,
+                            dtype=torch.int32)
+    rv[rc:] = torch.randint(-3, 2**31 - 1, (R - rc,), generator=g,
+                            dtype=torch.int32)
+    want = probe_count(lv, lc, rv, rc)
+    got = probe_count(lv.to(dev), torch.tensor(lc, device=dev),
+                      rv.to(dev), torch.tensor(rc, device=dev))
+    assert len(got) == len(want) == 5
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == torch.int32
+        assert torch.equal(a.cpu(), b)
+    assert 0 < int(want[4]) < L
 
 
 @pytest.mark.parametrize("count", [0, 1, 3000, 4096])

@@ -5,8 +5,10 @@ tolerance 0: every output array element-equal).
 
 Inputs come from numpy with a seed and go to both packages. Covered:
 ties, empty sides (live count 0), live counts below the padded length,
-right values next to the sentinel, and a join past 2**31 - 1 pairs
-(65,536 x 32,768 equal keys), whose total both packages report as -1.
+a left side far longer than the right and the reverse, live values
+below 0, a right side whose live values all tie, right values next to
+the sentinel, and a join past 2**31 - 1 pairs (65,536 x 32,768 equal
+keys), whose total both packages report as -1.
 """
 
 import importlib
@@ -116,32 +118,40 @@ def test_gather_clamped_pads_like_jit():
 
 # ---- sort join ----
 
-def _join_case(seed, L, R, lcount, rcount, vmax):
+def _join_case(seed, L, R, lcount, rcount, vmax, vmin=0, rvmax=None):
     """Padded sides; lanes past the live counts hold garbage that the
-    probes must ignore."""
+    probes must ignore. Live values lie in [vmin, vmax), the right's in
+    [vmin, rvmax) when given; a live right value is never -1, the left
+    padding, so that dead left lanes match nothing."""
     rng = np.random.default_rng(seed)
-    lv = rng.integers(0, vmax, L).astype(np.int32)
-    rv = rng.integers(0, vmax, R).astype(np.int32)
+    lv = rng.integers(vmin, vmax, L).astype(np.int32)
+    rv = rng.integers(vmin, vmax if rvmax is None else rvmax,
+                      R).astype(np.int32)
+    rv[rv == -1] = -2
     lv[lcount:] = rng.integers(-3, INT32_MAX, L - lcount)
     rv[rcount:] = rng.integers(-3, INT32_MAX, R - rcount)
     return lv, rv
 
 
 JOIN_CASES = [
-    # (L, R, lcount, rcount, vmax)
+    # (L, R, lcount, rcount, vmax[, vmin, right's vmax])
     (1024, 1024, 1024, 1024, 16),       # heavy ties
     (1024, 2048, 700, 1500, 64),        # counts below the padded length
     (2048, 1024, 2048, 1, 4),           # one live right
     (1024, 1024, 0, 1024, 8),           # empty left side
     (1024, 1024, 1024, 0, 8),           # empty right side
     (4096, 4096, 4000, 3000, 1 << 20),  # mostly unique
+    (65536, 64, 40000, 64, 16),         # L >> R, heavy ties in the right
+    (1024, 65536, 1000, 60000, 1 << 12),  # R >> L
+    (2048, 1024, 1800, 900, 8, -8),     # live values below 0 on both sides
+    (2048, 1024, 2000, 1000, 4, 0, 1),  # every live right value ties
 ]
 
 
 @pytest.mark.parametrize("case", JOIN_CASES)
 def test_probe_and_expand_match_jax(case):
-    L, R, lc, rc, vmax = case
-    lv, rv = _join_case(sum(case), L, R, lc, rc, vmax)
+    L, R, lc, rc = case[:4]
+    lv, rv = _join_case(sum(case), *case)
     got = tjoin.probe_count(_t(lv), lc, _t(rv), rc)
     want = jjoin.probe_count(jnp.asarray(lv), jnp.int32(lc),
                              jnp.asarray(rv), jnp.int32(rc))
@@ -195,7 +205,7 @@ def test_any_common_matches_jax(count, vmax):
 def test_dense_probe_and_expand_match_jax(case):
     L, R, lc, rc, vmax = case
     domain = 1024
-    lv, rv = _join_case(sum(case) + 1, L, R, lc, rc, vmax)
+    lv, rv = _join_case(sum(case) + 1, *case)
     rv[rc:] = np.random.default_rng(0).integers(0, domain, R - rc)
     got = tdense.dense_probe(_t(lv), lc, _t(rv), rc, domain)
     want = jdense.dense_probe(jnp.asarray(lv), jnp.int32(lc),

@@ -9,8 +9,9 @@ With no torch.profiler capture recording, nothing is recorded and the
 shared no-op context is all a span costs. Under a capture, every span
 appears in it as `rhj.<name>` as often as SPANS counts it, the readback
 span as often as the batch driver's readback counter moves, the probe span
-once per case-1/2 join, and the sort join's padded and live row counts
-equal those worked out by the oracle's own walk of each query. The card's
+once per case-1/2 join, and the sort join's padded and live right rows
+(sorted) and padded left lanes (binary-searched) equal those worked out
+by the oracle's own walk of each query. The card's
 test (marked `cuda`) holds the stream-timed spans' CUDA-event seconds to
 the run's wall time; this file imports nothing of jax:
 
@@ -81,8 +82,8 @@ def _want(rels, queries):
 
 
 def _probes(rels, q):
-    """(padded L + R, live L + R) of each probe the per-op path runs for
-    `q`, in join order: the oracle's walk of the query, which runs on past
+    """(padded R, live R, padded L) of each probe the per-op path runs
+    for `q`, in join order: the oracle's walk of the query, which runs on past
     an emptied filter (the path keeps it as a device flag) and past an
     empty case-3 pair set, and stops at a probe with no pairs. A slot's
     live rows keep their padded length `bucket(rows)`; an intermediate
@@ -110,16 +111,14 @@ def _probes(rels, q):
             inter = {s: v[keep] for s, v in inter.items()}
             continue
         if s1 not in inter and s2 not in inter:
-            out.append((width[s1] + width[s2],
-                        len(live[s1]) + len(live[s2])))
+            out.append((width[s2], len(live[s2]), width[s1]))
             li, ri = _expand_match(a[live[s1]], b[live[s2]])
             if len(li):
                 inter = {s1: live[s1][li], s2: live[s2][ri]}
         else:
             full, fresh, fv, gv = ((s1, s2, a, b) if s1 in inter
                                    else (s2, s1, b, a))
-            out.append((inter_width + width[fresh],
-                        len(inter[full]) + len(live[fresh])))
+            out.append((width[fresh], len(live[fresh]), inter_width))
             li, ri = _expand_match(fv[inter[full]], gv[live[fresh]])
             if len(li):
                 inter = {s: v[li] for s, v in inter.items()}
@@ -195,12 +194,15 @@ def test_probe_span_is_a_case_1_or_2_join(traced):
 def test_sort_join_row_counts(traced):
     totals = traced["totals"]
     assert totals["join.sorted_rows"]["count"] == sum(
-        padded for padded, _live in traced["probes"])
+        padded_r for padded_r, _live_r, _padded_l in traced["probes"])
     assert totals["join.live_rows"]["count"] == sum(
-        live for _padded, live in traced["probes"])
+        live_r for _padded_r, live_r, _padded_l in traced["probes"])
+    assert totals["join.searched_rows"]["count"] == sum(
+        padded_l for _padded_r, _live_r, padded_l in traced["probes"])
     assert 0 < totals["join.live_rows"]["count"] < \
         totals["join.sorted_rows"]["count"]
     assert totals["join.sorted_rows"]["calls"] == 0
+    assert totals["join.searched_rows"]["calls"] == 0
 
 
 def test_host_seconds_nest(traced):
