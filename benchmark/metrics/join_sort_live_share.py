@@ -1,7 +1,8 @@
-"""Share of the rows the sort join sorts that are live (ops/join.py
-`probe_count` sorts the padded [right, left] values): 100 *
+"""Share of the rows the sort join sorts that are live, in %: 100 *
 join.live_rows / join.sorted_rows, the batch driver's counters of each
-probe's live and padded L + R, in %."""
+probe's live and padded right (build) rows (ops/join.py `probe_count`
+sorts the padded right side and binary-searches the left lanes into
+it)."""
 
 from benchmark.metrics._spans import span_totals
 

@@ -8,7 +8,19 @@
                                    use its base's, metrics/<base>.py)
 
 A later cell, configuration, traffic mix or metric is new files and new
-entries; no file here changes.
+entries; no file here changes:
+
+- a configuration brings its schema module (schemas/<schema>.py, which
+  may load another schema's by path with `load_module` and change what
+  it must), its file under configs/ with "rows", the timed sizes, and
+  "test_rows": {"cpu": {...}, "card": {...}}, the sizes its tests run
+  it at (the keys of "rows"; tests/test_benchmark_cells.py `sized`),
+  any traffic mix it needs and the readers of its per-layer metrics;
+- a cell is an entry of "workloads"; its name goes into the
+  "workloads" list of each metric it reports that has one ("setup_s"
+  has none: every cell reports it);
+- a cell whose runs spread otherwise than the cells under a metric's
+  bound reports a split name, `<metric>.<group>`, with its own bound.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """On the card (marker `cuda`; skipped without one): a cell through the
-harness at a reduced size comes out correct, and the control (the
-float32-summed reference in the program's place, benchmark/control.py)
-does not.
+harness at its configuration's card test size (`test_rows["card"]`)
+comes out correct, and the control (the float32-summed reference in the
+program's place, benchmark/control.py) does not.
 
     python -m pytest benchmark/tests/test_benchmark_card.py -m cuda
 """
@@ -11,8 +11,8 @@ import torch
 
 from benchmark import harness
 from benchmark.control import Control
-from benchmark.spec import load_benchmark
-from benchmark.tests.test_benchmark_cells import SEED, tiny
+from benchmark.spec import Cell, load_benchmark
+from benchmark.tests.test_benchmark_cells import SEED, sized
 
 pytestmark = pytest.mark.cuda
 
@@ -27,10 +27,7 @@ def card():
 @pytest.mark.parametrize("workload", [w["name"] for w in
                                       load_benchmark()["workloads"]])
 def test_the_program_is_correct_and_the_control_is_not(card, workload):
-    cell = tiny(workload)
-    cell.config = dict(cell.config, rows={
-        "lineorder": 2_000_000, "date": 2556, "customer": 10_000,
-        "supplier": 700, "part": 40_000})
+    cell = sized(Cell(load_benchmark(), workload), "card")
     ok = harness.run_cell(cell, SEED, 1.0, False, card, 0.0)
     assert ok["correct"], ok["checks"]
     control = harness.run_cell(cell, SEED, 1.0, False, card, 0.0,

@@ -3,6 +3,7 @@ the reference print the same lines; the run comes out not correct when
 the timed path is broken underneath it (faults planted in the program's
 place), and the run's own checks hold."""
 
+import copy
 import json
 import os
 import shutil
@@ -18,21 +19,26 @@ from benchmark.capture import _host_at, _union
 from benchmark.control import Control
 from benchmark.reference.semantics import Reference
 from benchmark.spec import ROOT, Cell, load_benchmark
+from radixhashjoin_tpu_torch.utils import profiling
 
 CPU = torch.device("cpu")
-TINY_SSB = {"lineorder": 40000, "date": 2556, "customer": 600,
-            "supplier": 40, "part": 3000}
 SEED = 2**31 + 12345          # past 32 signed bits, as the driver's are
 
 
 CELLS = [w["name"] for w in load_benchmark()["workloads"]]
 
 
-def tiny(workload):
-    cell = Cell(load_benchmark(), workload)
-    if cell.config["schema"] == "ssb":
-        cell.config = dict(cell.config, rows=TINY_SSB)
+def sized(cell, where):
+    """`cell` at the rows its configuration file states for tests on the
+    CPU or the card (`where` "cpu" or "card"): `test_rows[where]` in
+    place of `rows`."""
+    cell = copy.copy(cell)
+    cell.config = dict(cell.config, rows=cell.config["test_rows"][where])
     return cell
+
+
+def tiny(workload):
+    return sized(Cell(load_benchmark(), workload), "cpu")
 
 
 def run(cell, engine_factory=None, seconds=0.3, seed=SEED):
@@ -69,7 +75,8 @@ def test_a_seed_gives_the_same_inputs():
     assert all(np.array_equal(x, y) for r, s in zip(a, b)
                for x, y in zip(r, s))
     assert [len(r) for r in a] == [17, 17, 8, 7, 9]
-    assert len(a[0][0]) == TINY_SSB["lineorder"] and len(a[1][0]) == 2556
+    rows = cell.config["test_rows"]["cpu"]
+    assert len(a[0][0]) == rows["lineorder"] and len(a[1][0]) == rows["date"]
 
 
 class _Broken:
@@ -166,7 +173,10 @@ def test_capture_helpers():
         "cudaLaunchKernel", None, "bench.parse"]
 
 
-def test_metric_readers():
+def test_metric_readers(monkeypatch):
+    """Every reader of the cell on a record whose program kept no spans:
+    the span readers say nothing (their numbers: test_span_readers.py)."""
+    monkeypatch.setattr(profiling, "span_totals", dict)
     cell = tiny("ssb_sf20.mixed")
     rec = {"queries": 50, "window_s": 2.0, "counters": {"readbacks": 5},
            "capture": {"kernels": 1000, "busy_s": 0.5, "csrc_kernels": 10},
@@ -174,7 +184,10 @@ def test_metric_readers():
     got = {name: read(rec) for name, read in cell.readers.items()}
     assert got == pytest.approx({
         "readbacks_per_query": 0.1, "launches_per_query": 20.0,
-        "device_idle_share": 75.0, "engine_build_s": 0.01})
+        "device_idle_share": 75.0, "engine_build_s": 0.01,
+        "join_stream_ms_per_query": None, "filter_stream_ms_per_query": None,
+        "aggregate_stream_ms_per_query": None,
+        "host_dispatch_ms_per_query": None, "join_sort_live_share": None})
     rec.update(capture_complete=False)
     got = {name: read(rec) for name, read in cell.readers.items()}
     assert got["launches_per_query"] is None

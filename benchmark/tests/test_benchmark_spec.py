@@ -1,17 +1,21 @@
 """BENCHMARK.json keeps to its contract, and every name in it finds its
-files; a new configuration, traffic mix and per-layer metric are new
-files and entries, with no edit to a file that is there."""
+files; each configuration states the sizes its tests run it at; a new
+configuration, schema, traffic mix and per-layer metric are new files
+and entries, with no edit to a file that is there."""
 
+import hashlib
 import json
 import os
 import re
 import shutil
 
+import numpy as np
 import pytest
 import torch
 
 from benchmark import harness
-from benchmark.spec import BENCH_DIR, ROOT, Cell, load_benchmark
+from benchmark.spec import BENCH_DIR, ROOT, Cell, load_benchmark, load_module
+from benchmark.tests.test_benchmark_cells import sized
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
@@ -82,6 +86,16 @@ def test_benchmark_json_keeps_to_the_contract():
             assert m["unit"] == "%"
 
 
+def _check_test_rows(config):
+    """`test_rows` holds a "cpu" and a "card" size, each with the keys of
+    `rows` and positive counts no larger than the timed run's."""
+    assert set(config["test_rows"]) == {"cpu", "card"}
+    for rows in config["test_rows"].values():
+        assert set(rows) == set(config["rows"])
+        assert all(isinstance(n, int) and 0 < n <= config["rows"][table]
+                   for table, n in rows.items())
+
+
 @pytest.mark.parametrize("workload", [w["name"] for w in
                                       load_benchmark()["workloads"]])
 def test_every_name_finds_its_files(workload):
@@ -90,6 +104,7 @@ def test_every_name_finds_its_files(workload):
     assert cell.traffic["draws"] and cell.traffic["draws_per_request"] >= 1
     assert {m["name"] for m in cell.per_layer} == set(cell.readers)
     assert cell.end_to_end and cell.per_layer
+    _check_test_rows(cell.config)
 
 
 def test_forbidden_modules_compare_whole_names(monkeypatch):
@@ -101,19 +116,54 @@ def test_forbidden_modules_compare_whole_names(monkeypatch):
     assert harness.forbidden_modules() == ["jaxlib", "radixhashjoin_tpu.ops"]
 
 
+ZIPF_SCHEMA = '''"""SSB with lo_suppkey drawn from a Zipf law (a test's schema)."""
+import os
+
+import numpy as np
+
+from benchmark.spec import load_module
+
+ssb = load_module(os.path.join(os.path.dirname(__file__), "ssb.py"))
+templates = ssb.templates
+SUPPKEY = ssb.COLUMNS["lineorder"].index("lo_suppkey")
+
+
+def generate(config, seed, device):
+    relations = ssb.generate(config, seed, device)
+    fact = relations[ssb.LINEORDER]
+    draws = np.random.default_rng(seed).zipf(1.5, len(fact[SUPPKEY]))
+    fact[SUPPKEY] = ((draws - 1) % config["rows"]["supplier"] + 1
+                     ).astype(np.uint64)
+    return relations
+'''
+
+
+def _digests(root):
+    return {str(p.relative_to(root)): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in root.rglob("*")
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
 def test_a_new_config_traffic_and_metric_are_files_and_entries(tmp_path):
-    """A throwaway checkout gains a configuration, a traffic mix, a
-    per-layer metric and a cell by new files and entries only; the run
-    finds and uses each of them."""
+    """A throwaway checkout gains a configuration whose schema module is
+    new (SSB with Zipf-drawn supplier keys), a traffic mix, a per-layer
+    metric and a cell by new files and entries only, with no copied file
+    changed: the cell tests' helper sizes the cell from the
+    configuration's own `test_rows`, and the run finds and uses each
+    file and comes out correct on the CPU."""
     root = tmp_path / "checkout"
     shutil.copytree(BENCH_DIR, root / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__"))
+    copied = _digests(root)
     bench = load_benchmark()
     config = json.loads((root / "benchmark/configs/ssb_sf20.json").read_text())
-    config.update(name="ssb_tiny", rows={
-        "lineorder": 20000, "date": 2556, "customer": 300, "supplier": 20,
-        "part": 2000})
+    rows = config["test_rows"]["cpu"]
+    cpu = dict(rows, lineorder=rows["lineorder"] // 2)
+    config.update(name="ssb_tiny", schema="ssb_zipf_supp", rows=rows,
+                  test_rows={"cpu": cpu, "card": rows})
+    _check_test_rows(config)
     (root / "benchmark/configs/ssb_tiny.json").write_text(json.dumps(config))
+    (root / "benchmark/schemas/ssb_zipf_supp.py").write_text(ZIPF_SCHEMA)
     (root / "benchmark/traffic/flight4_batches.json").write_text(json.dumps(
         {"draws": {"q4.1": 4, "q4.3": 2}, "draws_per_request": 3}))
     (root / "benchmark/metrics/dispatches_per_query.py").write_text(
@@ -137,11 +187,22 @@ def test_a_new_config_traffic_and_metric_are_files_and_entries(tmp_path):
                                "moves": "queries_per_s.tiny",
                                "workloads": ["ssb_tiny.flight4"]})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
-    cell = Cell(json.loads((root / "BENCHMARK.json").read_text()),
-                "ssb_tiny.flight4", str(root))
+
+    cell = sized(Cell(json.loads((root / "BENCHMARK.json").read_text()),
+                      "ssb_tiny.flight4", str(root)), "cpu")
+    assert cell.config["rows"] == cpu
     assert "dispatches_per_query" in cell.readers
+    relations = cell.schema.generate(cell.config, 11, torch.device("cpu"))
+    assert len(relations[0][0]) == cpu["lineorder"]
+    ssb = load_module(os.path.join(BENCH_DIR, "schemas", "ssb.py"))
+    plain = ssb.generate(cell.config, 11, torch.device("cpu"))
+    suppkey = ssb.COLUMNS["lineorder"].index("lo_suppkey")
+    assert [i for i, (a, b) in enumerate(zip(relations[0], plain[0]))
+            if not np.array_equal(a, b)] == [suppkey]
+    assert np.bincount(relations[0][suppkey].astype(np.int64)).argmax() == 1
     result = harness.run_cell(cell, 11, 0.2, True, torch.device("cpu"), 0.0)
     assert result["correct"], result["checks"]
     assert "dispatches_per_query" in result["metrics"]
     assert result["info"]["queries_a_cycle"] == 6
     assert result["info"]["requests_a_cycle"] == 2
+    assert {k: v for k, v in _digests(root).items() if k in copied} == copied
