@@ -1,8 +1,14 @@
 """The traced run's reduction: `reduce_capture` reads a torch.profiler
 capture of the window: the union of device activity, the device kernels
-and the program's own csrc kernels among them, the device operations
-that took most time, and the idle gaps by what the host's main thread
-was doing then.
+and the program's own csrc kernels among them, with each csrc kernel's
+device seconds over every launch, the device operations that took most
+time, and the idle gaps by what the host's main thread was doing then.
+
+A csrc kernel is known by its demangled name, which starts with
+`(anonymous namespace)::<name>(` for a plain `__global__` function of
+the anonymous namespace; an overload with other parameter types counts
+under the same key, a template (`void (anonymous namespace)::<name><`)
+under none.
 """
 
 from __future__ import annotations
@@ -19,8 +25,10 @@ CSRC_KERNELS = {"bincount": ("bincount_smem_kernel", "bincount_cached_kernel"),
                 "gather2": ("gather2_kernel",),
                 "radix_hist": ("radix_hist_kernel",),
                 "rank_hist": ("rank_hist_kernel",)}
-CSRC_PREFIXES = tuple(f"(anonymous namespace)::{fn}(" for fns in
-                      CSRC_KERNELS.values() for fn in fns)
+CSRC_KEY_PREFIXES = {key: tuple(f"(anonymous namespace)::{fn}("
+                                 for fn in fns)
+                     for key, fns in CSRC_KERNELS.items()}
+CSRC_PREFIXES = sum(CSRC_KEY_PREFIXES.values(), ())
 TOP = 10
 NAME_CHARS = 120
 
@@ -58,10 +66,24 @@ def _annotation(ev) -> bool:
     return ev.name().startswith("bench.") or bool(flag and flag())
 
 
+def csrc_seconds(kernels) -> Dict[str, float]:
+    """Device seconds of [(start ns, end ns, name)] kernels, summed by
+    the key of CSRC_KERNELS whose prefixes start the name (every key,
+    0.0 where none ran)."""
+    ns = dict.fromkeys(CSRC_KEY_PREFIXES, 0)
+    for s, e, n in kernels:
+        for key, prefixes in CSRC_KEY_PREFIXES.items():
+            if n.startswith(prefixes):
+                ns[key] += e - s
+                break
+    return {key: v / 1e9 for key, v in ns.items()}
+
+
 def reduce_capture(prof, window_span: str) -> dict:
     """Device activity of a torch.profiler capture inside the host span
-    named `window_span`: {"busy_s", "kernels", "csrc_kernels",
-    "device_ops", "idle_gaps"}, seconds as measured."""
+    named `window_span`: {"busy_s", "kernels", "csrc_kernels", "csrc_s",
+    "device_ops", "idle_gaps"}, seconds as measured; `csrc_s` holds
+    `csrc_seconds` of the window's kernels."""
     cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
     device, host, window = [], [], None
     for ev in prof.profiler.kineto_results.events():
@@ -103,5 +125,6 @@ def reduce_capture(prof, window_span: str) -> dict:
     return {"busy_s": busy_ns / 1e9, "kernels": len(kernels),
             "csrc_kernels": sum(1 for k in kernels
                                 if k[2].startswith(CSRC_PREFIXES)),
+            "csrc_s": csrc_seconds(kernels),
             "device_ops": sorted(by_name.items(), key=lambda x: -x[1])[:TOP],
             "idle_gaps": sorted(idle.items(), key=lambda x: -x[1])[:TOP]}

@@ -1,7 +1,8 @@
-"""The control of `correct`: the reference with its SUMs accumulated in
-float32 instead of exact 64-bit integers, which breaks the exactness the
-configurations state, put in the program's place and run through the
-harness at a cell's own size.
+"""The control of `correct`: the cell's own reference (`cell.reference`,
+reference/semantics.py unless its configuration names another) with its
+SUMs accumulated in float32 instead of exact 64-bit integers, which
+breaks the exactness the configurations state, put in the program's
+place and run through the harness at a cell's own size.
 
     python3 -m benchmark.control --workload <name> --seeds <a,b,c>
                                  [--seconds <s>]
@@ -14,25 +15,31 @@ run it.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import time
 
 import torch
 
 from .harness import run_cell
-from .reference.semantics import Reference
 from .spec import ROOT, Cell, load_benchmark
 
 
 class Control:
-    """An engine whose answers are the float32-summed reference's."""
+    """An engine whose answers are `reference`'s, summed in float32."""
 
-    def __init__(self, relations, device):
-        self.ref = Reference([rel.values for rel in relations], device,
+    def __init__(self, reference, relations, device):
+        self.ref = reference([rel.values for rel in relations], device,
                              sum_dtype=torch.float32)
 
     def run_batch(self, batch):
         return self.ref.lines([q.text for q in batch])
+
+
+def control(cell: Cell):
+    """The `engine_factory` of `run_cell` that puts the cell's control in
+    the program's place."""
+    return functools.partial(Control, cell.reference)
 
 
 def main(argv=None) -> int:
@@ -48,7 +55,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     for seed in (int(s) for s in args.seeds.split(",")):
         r = run_cell(cell, seed, seconds, False, dev, time.perf_counter(),
-                     engine_factory=Control)
+                     engine_factory=control(cell))
         print(json.dumps({"workload": cell.name, "seed": seed,
                           "correct": r["correct"],
                           "attempted": r["attempted"], "failed": r["failed"],

@@ -18,9 +18,10 @@ TRACE_SECONDS (or `seconds`, if shorter) have passed. A query is one
 draw of a template (generator.py), however many lines it sends.
 
 Then the peak device memory is read, the engine is freed, and the
-reference (reference/semantics.py) answers each distinct request once,
-on the same device; every line the window printed is compared with the
-reference's line for its request (reference/compare.py).
+configuration's reference (`cell.reference`: reference/semantics.py
+unless the configuration names its own) answers each distinct request
+once, on the same device; every line the window printed is compared with
+the reference's line for its request (reference/compare.py).
 """
 
 from __future__ import annotations
@@ -37,7 +38,6 @@ import torch
 from . import generator
 from .capture import reduce_capture
 from .reference.compare import compare
-from .reference.semantics import Reference
 from .spec import Cell, base_name
 
 TRACE_SECONDS = 2.0
@@ -175,7 +175,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
 
     _log(f"window {window_s:.2f} s, {len(done)} requests")
     t_ref = time.perf_counter()
-    ref = Reference(columns, device)
+    ref = cell.reference(columns, device)
     want = {k: ref.lines(cycle[k][1]) for k in {k for k, _l, _t in done}}
     del ref
     checks, correct, failed = compare(
@@ -206,7 +206,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
             device_info["window_s"] = window_s
             result["breakdown"] = {"device_ops": cap["device_ops"],
                                    "idle_gaps": cap["idle_gaps"]}
-            info["capture"] = {k: cap[k] for k in ("kernels", "csrc_kernels")}
+            info["capture"] = {k: cap[k] for k in ("kernels", "csrc_kernels",
+                                                   "csrc_s")}
             info["capture"]["launches_counted"] = made
             if not record["capture_complete"]:
                 print(f"the capture holds {cap['csrc_kernels']} csrc kernel "

@@ -1,1 +1,2 @@
-"""The plain reference and the comparison that decides `correct`."""
+"""The plain references (semantics.py, shared; a configuration may name
+its own) and the comparison that decides `correct`."""

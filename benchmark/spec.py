@@ -2,6 +2,9 @@
 
     configs[].file                 the configuration (JSON), whose
                                    "schema" names schemas/<schema>.py
+                                   and "reference", if it has one,
+                                   reference/<reference>.py (else
+                                   reference/semantics.py)
     traffic/<traffic>.json         a cell's traffic mix (data only)
     metrics/<name>.py              a per-layer metric's reader (a name
                                    split by cells, `<base>.<cells>`, may
@@ -16,6 +19,13 @@ entries; no file here changes:
   "test_rows": {"cpu": {...}, "card": {...}}, the sizes its tests run
   it at (the keys of "rows"; tests/test_benchmark_cells.py `sized`),
   any traffic mix it needs and the readers of its per-layer metrics;
+  where the shared reference cannot answer its queries at its sizes
+  (reference/semantics.py builds every joined pair), it names a plain
+  reference of its own, reference/<module>.py: a class `Reference(
+  relations, device, sum_dtype=torch.int64)` with `lines(request) ->
+  List[str]`, the same semantics by another algorithm, importing nothing
+  of the program; the harness answers the requests with it and the
+  control (control.py) is the same class with `sum_dtype=torch.float32`;
 - a cell is an entry of "workloads"; its name goes into the
   "workloads" list of each metric it reports that has one ("setup_s"
   has none: every cell reports it);
@@ -68,6 +78,9 @@ class Cell:
         bench_dir = os.path.join(root, "benchmark")
         self.schema = load_module(os.path.join(
             bench_dir, "schemas", f"{self.config['schema']}.py"))
+        self.reference = load_module(os.path.join(
+            bench_dir, "reference",
+            f"{self.config.get('reference', 'semantics')}.py")).Reference
         with open(os.path.join(bench_dir, "traffic",
                                f"{self.workload['traffic']}.json")) as f:
             self.traffic = json.load(f)

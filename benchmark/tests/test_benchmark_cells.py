@@ -9,14 +9,15 @@ import os
 import shutil
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
 from benchmark import generator, harness
-from benchmark.capture import _host_at, _union
-from benchmark.control import Control
+from benchmark.capture import _host_at, _union, reduce_capture
+from benchmark.control import control
 from benchmark.reference.semantics import Reference
 from benchmark.spec import ROOT, Cell, load_benchmark
 from radixhashjoin_tpu_torch.utils import profiling
@@ -56,16 +57,50 @@ def test_engine_and_reference_print_the_same_lines(workload):
     assert list(result)[-2:] == ["checks", "info"]
 
 
+def _cycle_lines(cell, reference):
+    """[lines of each request] of one cycle of `cell`'s traffic at its
+    size, answered by `reference` on the CPU."""
+    cols = cell.schema.generate(cell.config, SEED, CPU)
+    cycle = generator.requests(cell.traffic,
+                               cell.schema.templates(cell.config, cols), SEED)
+    ref = reference(cols, CPU)
+    return [ref.lines(req) for _l, req, _n in cycle]
+
+
 @pytest.mark.parametrize("workload", CELLS)
 def test_the_lines_are_not_all_null(workload):
     """The tiny data still answers most queries with numbers."""
     cell = tiny(workload)
-    cols = cell.schema.generate(cell.config, SEED, CPU)
-    cycle = generator.requests(cell.traffic,
-                               cell.schema.templates(cell.config, cols), SEED)
-    ref = Reference(cols, CPU)
-    lines = [ln for _l, req, _n in cycle for ln in ref.lines(req)]
+    lines = [ln for req in _cycle_lines(cell, cell.reference) for ln in req]
     assert sum("NULL" not in ln for ln in lines) > len(lines) // 2
+
+
+def own_reference_agrees(bench, config, root=ROOT):
+    """Over one cycle of each of `config`'s cells at its `test_rows["cpu"]`
+    sizes, the configuration's reference gives the shared semantics'
+    (reference/semantics.py) lines."""
+    cells = [w["name"] for w in bench["workloads"] if w["config"] == config]
+    assert cells
+    for w in cells:
+        cell = sized(Cell(bench, w, root), "cpu")
+        assert _cycle_lines(cell, cell.reference) == \
+            _cycle_lines(cell, Reference), w
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in
+                                    load_benchmark()["configs"]])
+def test_a_configuration_s_reference_keeps_the_shared_semantics(config):
+    """A configuration that names a reference of its own is held to the
+    shared one's lines; one that names none is answered by the shared
+    one."""
+    bench = load_benchmark()
+    cell = Cell(bench, next(w["name"] for w in bench["workloads"]
+                            if w["config"] == config))
+    if "reference" in cell.config:
+        own_reference_agrees(bench, config)
+    else:
+        assert cell.reference.lines.__code__.co_filename == os.path.join(
+            ROOT, "benchmark", "reference", "semantics.py")
 
 
 def test_a_seed_gives_the_same_inputs():
@@ -147,9 +182,10 @@ def test_a_raising_request_counts_as_missing():
 
 @pytest.mark.parametrize("workload", CELLS)
 def test_the_control_is_not_correct(workload):
-    """The reference with its SUMs accumulated in float32 (the control),
-    put in the program's place, fails the comparison."""
-    result = run(tiny(workload), engine_factory=Control)
+    """The cell's reference with its SUMs accumulated in float32 (the
+    control), put in the program's place, fails the comparison."""
+    cell = tiny(workload)
+    result = run(cell, engine_factory=control(cell))
     assert not result["correct"]
     assert result["checks"]["mismatched_lines"]["value"] > 0
 
@@ -171,6 +207,76 @@ def test_capture_helpers():
     assert _host_at(host, [5, 15, 25, 35, 150, 250]) == [
         "bench.run_batch", "aten::sort", "bench.run_batch",
         "cudaLaunchKernel", None, "bench.parse"]
+
+
+class _Event:
+    """One event of a torch.profiler capture, as reduce_capture reads it."""
+
+    def __init__(self, device, name, start, end, thread=1, annotation=False):
+        self.dev, self.nm, self.s, self.e = device, name, start, end
+        self.thread, self.annotation = thread, annotation
+
+    def device_type(self):
+        return self.dev
+
+    def name(self):
+        return self.nm
+
+    def start_ns(self):
+        return self.s
+
+    def duration_ns(self):
+        return self.e - self.s
+
+    def start_thread_id(self):
+        return self.thread
+
+    def is_user_annotation(self):
+        return self.annotation
+
+
+def test_csrc_seconds_cover_every_launch():
+    """`csrc_s` sums each csrc kernel's device seconds by its LAUNCHES
+    key over every launch in the window: both overloads of one
+    `__global__` name under its key, a template or a library kernel
+    under none, kernels outside the ten longest included."""
+    cuda = torch.autograd.DeviceType.CUDA
+    cpu = torch.autograd.DeviceType.CPU
+    w0, w1 = 1_000, 1_000_000
+    device, t = [], 2_000
+    lib = [f"void at::native::kernel_{i}<long>(long*, long)"
+           for i in range(12)]           # twelve longer than any below
+    csrc = [("(anonymous namespace)::bincount_cached_kernel(int const*, "
+             "int const*, long long, int*, int)", 300),
+            ("(anonymous namespace)::bincount_cached_kernel(long long "
+             "const*, long long const*, long long, long long*, int)", 200),
+            ("(anonymous namespace)::gather_kernel(int const*, int, int "
+             "const*, long long, int, int*)", 70),
+            ("void (anonymous namespace)::gather_kernel<long>(long const*, "
+             "long long)", 50),                          # a template: none
+            ("void at::native::_scatter_gather_elementwise_kernel<128, 8>()",
+             40),                                        # a library kernel
+            ("Memcpy DtoH (Device -> Pinned)", 30)]
+    for name, dur in [(n, 1_000) for n in lib] + csrc:
+        device.append(_Event(cuda, name, t, t + dur))
+        t += dur + 100
+    device += [  # a launch across the window's start counts its share
+        _Event(cuda, csrc[0][0], w0 - 400, w0 + 100),
+        _Event(cuda, csrc[2][0], w1 + 10, w1 + 90),      # after the window
+        _Event(cuda, "bench.run_batch", w0, w1, annotation=True)]
+    host = [_Event(cpu, "bench.window", w0, w1),
+            _Event(cpu, "bench.run_batch", w0 + 10, w1 - 10)]
+    prof = SimpleNamespace(profiler=SimpleNamespace(kineto_results=(
+        SimpleNamespace(events=lambda: device + host))))
+    cap = reduce_capture(prof, "bench.window")
+    assert cap["csrc_s"] == pytest.approx(
+        {"bincount": 600e-9, "gather": 70e-9, "gather2": 0.0,
+         "radix_hist": 0.0, "rank_hist": 0.0}, abs=1e-15)
+    assert cap["csrc_kernels"] == 4
+    assert cap["kernels"] == 18
+    assert [n for n, _s in cap["device_ops"]] == [n[:120] for n in lib[:10]]
+    assert cap["busy_s"] == pytest.approx((12_000 + 690 + 100) / 1e9)
+    assert [n for n, _s in cap["idle_gaps"]] == ["bench.run_batch"]
 
 
 def test_metric_readers(monkeypatch):
@@ -215,6 +321,8 @@ def test_run_exits_without_a_card_and_prints_no_result(tmp_path, alone):
 
 
 def test_benchmark_files_import_neither_jax_nor_the_jax_package():
+    """Nor do the references (benchmark/reference/) import the program."""
+    reference = os.path.join(ROOT, "benchmark", "reference")
     for dirpath, _dirs, files in os.walk(os.path.join(ROOT, "benchmark")):
         for name in files:
             if not name.endswith(".py"):
@@ -226,6 +334,9 @@ def test_benchmark_files_import_neither_jax_nor_the_jax_package():
                         top = words[1].split(".")[0]
                         assert top not in harness.FORBIDDEN, (name, ln)
                         assert top not in ("bench", "scripts"), (name, ln)
+                        if dirpath.startswith(reference):
+                            assert top != "radixhashjoin_tpu_torch", (name,
+                                                                      ln)
 
 
 def test_result_line_is_json():

@@ -1,7 +1,7 @@
 """BENCHMARK.json keeps to its contract, and every name in it finds its
 files; each configuration states the sizes its tests run it at; a new
-configuration, schema, traffic mix and per-layer metric are new files
-and entries, with no edit to a file that is there."""
+configuration, schema, reference, traffic mix and per-layer metric are
+new files and entries, with no edit to a file that is there."""
 
 import hashlib
 import json
@@ -14,8 +14,9 @@ import pytest
 import torch
 
 from benchmark import harness
+from benchmark.control import control
 from benchmark.spec import BENCH_DIR, ROOT, Cell, load_benchmark, load_module
-from benchmark.tests.test_benchmark_cells import sized
+from benchmark.tests.test_benchmark_cells import own_reference_agrees, sized
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
@@ -138,6 +139,38 @@ def generate(config, seed, device):
 '''
 
 
+RECORDED_REFERENCE = '''"""The shared semantics, each instance's SUM type recorded in `made`
+(a test's reference)."""
+import os
+
+import torch
+
+from benchmark.spec import load_module
+
+semantics = load_module(os.path.join(os.path.dirname(__file__),
+                                     "semantics.py"))
+
+
+class Reference(semantics.Reference):
+    made = []
+
+    def __init__(self, relations, device, sum_dtype=torch.int64):
+        super().__init__(relations, device, sum_dtype)
+        self.made.append(sum_dtype)
+'''
+
+WRONG_REFERENCE = RECORDED_REFERENCE + '''
+    def answer(self, line):
+        """The first line answered with numbers has its first SUM one
+        more."""
+        sums = super().answer(line)
+        if sums is not None and not getattr(self, "altered", False):
+            self.altered = True
+            sums[0] += 1
+        return sums
+'''
+
+
 def _digests(root):
     return {str(p.relative_to(root)): hashlib.sha256(p.read_bytes()).hexdigest()
             for p in root.rglob("*")
@@ -146,11 +179,14 @@ def _digests(root):
 
 def test_a_new_config_traffic_and_metric_are_files_and_entries(tmp_path):
     """A throwaway checkout gains a configuration whose schema module is
-    new (SSB with Zipf-drawn supplier keys), a traffic mix, a per-layer
-    metric and a cell by new files and entries only, with no copied file
-    changed: the cell tests' helper sizes the cell from the
-    configuration's own `test_rows`, and the run finds and uses each
-    file and comes out correct on the CPU."""
+    new (SSB with Zipf-drawn supplier keys) and which names a reference
+    module of its own, a traffic mix, a per-layer metric and a cell by
+    new files and entries only, with no copied file changed: the cell
+    tests' helper sizes the cell from the configuration's own
+    `test_rows`, the run finds and uses each file and comes out correct
+    on the CPU, the harness and the control answer with that reference
+    (int64 and float32 SUMs), and a reference that gets one sum wrong
+    makes the run not correct and fails the shared semantics' test."""
     root = tmp_path / "checkout"
     shutil.copytree(BENCH_DIR, root / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -160,10 +196,15 @@ def test_a_new_config_traffic_and_metric_are_files_and_entries(tmp_path):
     rows = config["test_rows"]["cpu"]
     cpu = dict(rows, lineorder=rows["lineorder"] // 2)
     config.update(name="ssb_tiny", schema="ssb_zipf_supp", rows=rows,
-                  test_rows={"cpu": cpu, "card": rows})
+                  test_rows={"cpu": cpu, "card": rows},
+                  reference="ssb_recorded")
     _check_test_rows(config)
     (root / "benchmark/configs/ssb_tiny.json").write_text(json.dumps(config))
     (root / "benchmark/schemas/ssb_zipf_supp.py").write_text(ZIPF_SCHEMA)
+    (root / "benchmark/reference/ssb_recorded.py").write_text(
+        RECORDED_REFERENCE)
+    (root / "benchmark/reference/ssb_wrong_sum.py").write_text(
+        WRONG_REFERENCE)
     (root / "benchmark/traffic/flight4_batches.json").write_text(json.dumps(
         {"draws": {"q4.1": 4, "q4.3": 2}, "draws_per_request": 3}))
     (root / "benchmark/metrics/dispatches_per_query.py").write_text(
@@ -200,9 +241,29 @@ def test_a_new_config_traffic_and_metric_are_files_and_entries(tmp_path):
     assert [i for i, (a, b) in enumerate(zip(relations[0], plain[0]))
             if not np.array_equal(a, b)] == [suppkey]
     assert np.bincount(relations[0][suppkey].astype(np.int64)).argmax() == 1
+    made = cell.reference.made
     result = harness.run_cell(cell, 11, 0.2, True, torch.device("cpu"), 0.0)
     assert result["correct"], result["checks"]
+    assert made == [torch.int64]
     assert "dispatches_per_query" in result["metrics"]
     assert result["info"]["queries_a_cycle"] == 6
     assert result["info"]["requests_a_cycle"] == 2
+    own_reference_agrees(json.loads((root / "BENCHMARK.json").read_text()),
+                         "ssb_tiny", str(root))
+    made.clear()
+    controlled = harness.run_cell(cell, 11, 0.2, False, torch.device("cpu"),
+                                  0.0, engine_factory=control(cell))
+    assert made == [torch.float32, torch.int64]
+    assert not controlled["correct"]
+
+    config.update(reference="ssb_wrong_sum")
+    (root / "benchmark/configs/ssb_tiny.json").write_text(json.dumps(config))
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    wrong = sized(Cell(bench, "ssb_tiny.flight4", str(root)), "cpu")
+    result = harness.run_cell(wrong, 11, 0.2, False, torch.device("cpu"),
+                              0.0)
+    assert not result["correct"]
+    assert result["checks"]["mismatched_lines"]["value"] > 0
+    with pytest.raises(AssertionError):
+        own_reference_agrees(bench, "ssb_tiny", str(root))
     assert {k: v for k, v in _digests(root).items() if k in copied} == copied
