@@ -6,8 +6,9 @@
 Phases (any failure raises and exits non-zero; nothing is swallowed):
 
   0. the card (nvidia-smi name + power limit), torch and CUDA versions;
-  1. build the hand-written kernels (csrc/tables.cu, csrc/radix.cu)
-     with nvcc, one process per source, started together;
+  1. build the hand-written kernels (csrc/tables.cu, csrc/radix.cu,
+     csrc/select.cu) with nvcc, one process per source, started
+     together;
   2. each kernel against its plain PyTorch version on the card, at the
      shapes its path gives it: element-exact (torch.equal), timed with
      CUDA events (warm-up, then 20 launches of each) beside one PyTorch
@@ -25,6 +26,10 @@ Phases (any failure raises and exits non-zero; nothing is swallowed):
      on phase 4c's 2-bin binning at 2^25 digits; the
      partition and the 18-bit radix sort built on the rank kernel against
      torch.sort(stable=True), with every device op of a profiled call;
+     the select kernel at 2^27 lanes of SSB flight 1's columns (1, 2 and
+     4 predicates, identity and rowid input) against the chain of
+     one-predicate filters, beside torch.nonzero_static of the mask and
+     the whole select from library calls (select_library);
   3. the CLI on a synthetic catalog shaped like the contest's `small`
      set (14 relations, ~270K uint64 tuples, 50 tree-shaped queries in
      5 batches; the generators of radixhashjoin_tpu_torch/bench.py, which
@@ -62,7 +67,9 @@ Phases (any failure raises and exits non-zero; nothing is swallowed):
      check: 0 synchronizing calls inside a round. Then native against
      Python load and parse seconds (this catalog, and a star of phase
      4's shape written to files), and the A/B of warm walls: one round,
-     64-query rounds and per-query ftree ops, in turns, ten runs each;
+     64-query rounds and per-query ftree ops, in turns, ten runs each.
+     The in-process runs of phases 3-3d, counted from zero, must launch
+     the select kernel (their stage ops' and per-query filters);
   4. data scale through Engine.run_workload: a Zipf(1.1) fact of 2^27
      rows over 2^20 keys joined with a 2^20-row dimension, and a star of
      a 2^24-row fact with two 2^20-row dimensions, each against its
@@ -172,6 +179,8 @@ STAR_ROWS = 1 << 24
 DIM_KEYS = 1 << 20
 TRIANGLE_ROWS = 1 << 20
 SHOOTOUT_LOG_ROWS = 26
+# phase 2: the select kernel at the padded bucket of SSB SF 20's fact
+SELECT_LOG_LANES = 27
 # phase 4b: past the 2^28-row huge-node threshold, ragged tails
 HUGE_ZIPF_ROWS = (1 << 29) + 12345
 HUGE_STAR_ROWS = (1 << 29) + 4099
@@ -297,6 +306,7 @@ def phase_kernels(dev):
                   torch.cat(table_gather2_torch(t, tb, kk)),
                   f"n={kk.numel()} bins={b}")
     timed.update(_phase_radix_kernels(dev, gen, errs))
+    timed["select"] = _phase_select_kernel(dev, gen, errs)
     t0 = time.perf_counter()
     variants = bench_tables.variant_rows(dev, out=sys.stdout)
     print(json.dumps({"phase": "table_variants", "rows": len(variants),
@@ -305,43 +315,48 @@ def phase_kernels(dev):
     return timed, errs
 
 
+def _report(errs, name, label, pairs, kernel_fn, plain_fn, profile=0,
+            library=None, n_bytes=None, extra=None):
+    """One timed kernel row, printed and returned: each (kernel, plain)
+    pair of `pairs` must be element-exact. `library`: (call, fn) or
+    (None, reason); `n_bytes`: what the function must move, for
+    bound_ms; `profile`: how many of the device ops of a profiled call to
+    list (0: no profile); `extra`: further fields of the row."""
+    import torch
+    from radixhashjoin_tpu_torch.bench_tables import bound_ms
+    err = max(_max_abs_err(g, w) for g, w in pairs)
+    errs[name] = max(errs.get(name, 0), err)
+    if not all(torch.equal(g, w) for g, w in pairs):
+        raise AssertionError(f"{name} {label}: kernel != plain "
+                             f"(max abs err {err})")
+    row = {"kernel": name, "case": label, "exact": True,
+           "ms": _time_ms(kernel_fn), "plain_ms": _time_ms(plain_fn)}
+    if library is not None:
+        call, fn = library
+        row["library_call"] = call if call else fn
+        row["library_ms"] = _time_ms(fn) if call else None
+    if n_bytes is not None:
+        row["bound_ms"] = bound_ms(n_bytes)
+        row["bound_by"] = "bytes"
+    if profile:
+        row["device_profile"] = _profile(kernel_fn, top=profile)
+    row.update(extra or {})
+    print(json.dumps(row))
+    return row
+
+
 def _phase_radix_kernels(dev, gen, errs):
     """The radix histogram and rank kernels against their plain
     versions, and the partition and radix sort built on the rank kernel
     against torch.sort(stable=True)."""
     import torch
     from radixhashjoin_tpu_torch import kernels
-    from radixhashjoin_tpu_torch.bench_tables import bound_ms
     from radixhashjoin_tpu_torch.ops.partition import (partition_order,
                                                        radix_sort_order,
                                                        rank_and_hist_torch)
     from radixhashjoin_tpu_torch.ops.radix_hist import radix_histogram_torch
     errs.update({"radix_hist": 0, "rank_hist": 0})
     rows = {}
-
-    def report(name, label, pairs, kernel_fn, plain_fn, profile=0,
-               library=None, n_bytes=None):
-        """`library`: (call, fn) or (None, reason); `n_bytes`: what the
-        function must move, for bound_ms; `profile`: how many of the
-        device ops of a profiled call to list (0: no profile)."""
-        err = max(_max_abs_err(g, w) for g, w in pairs)
-        errs[name] = max(errs.get(name, 0), err)
-        if not all(torch.equal(g, w) for g, w in pairs):
-            raise AssertionError(f"{name} {label}: kernel != plain "
-                                 f"(max abs err {err})")
-        row = {"kernel": name, "case": label, "exact": True,
-               "ms": _time_ms(kernel_fn), "plain_ms": _time_ms(plain_fn)}
-        if library is not None:
-            call, fn = library
-            row["library_call"] = call if call else fn
-            row["library_ms"] = _time_ms(fn) if call else None
-        if n_bytes is not None:
-            row["bound_ms"] = bound_ms(n_bytes)
-            row["bound_by"] = "bytes"
-        if profile:
-            row["device_profile"] = _profile(kernel_fn, top=profile)
-        print(json.dumps(row))
-        return row
 
     # the shootout's histogram: 2^26 values into 256 bins, the last
     # 12345 lanes padding
@@ -353,8 +368,8 @@ def _phase_radix_kernels(dev, gen, errs):
     want = radix_histogram_torch(vals, count, bins)
     torch.cuda.synchronize()
     masked = vals[:count] & (bins - 1)          # the yardstick's input
-    rows["radix_hist"] = report(
-        "radix_hist", f"n=2^26 count=2^26-12345 bins={bins}",
+    rows["radix_hist"] = _report(
+        errs, "radix_hist", f"n=2^26 count=2^26-12345 bins={bins}",
         [(got, want)],
         lambda: kernels.radix_histogram_cuda(vals, count, bins),
         lambda: radix_histogram_torch(vals, count, bins),
@@ -381,15 +396,16 @@ def _phase_radix_kernels(dev, gen, errs):
         got = kernels.rank_hist_cuda(digits, bins)
         want = rank_and_hist_torch(digits, bins)
         torch.cuda.synchronize()
-        row = report("rank_hist", f"n=2^24 {dist} digits in [0, {bins}]",
-                     list(zip(got, want)),
-                     lambda: kernels.rank_hist_cuda(digits, bins),
-                     lambda: rank_and_hist_torch(digits, bins),
-                     library=(None, "none: no PyTorch call computes "
-                              "per-block stable ranks and block histograms;"
-                              " torch.sort(stable=True) is its consumers' "
-                              "yardstick (partition_order row)"),
-                     n_bytes=n * 8 + -(-n // kernels.RANK_BLOCK) * bins * 4)
+        row = _report(errs, "rank_hist",
+                      f"n=2^24 {dist} digits in [0, {bins}]",
+                      list(zip(got, want)),
+                      lambda: kernels.rank_hist_cuda(digits, bins),
+                      lambda: rank_and_hist_torch(digits, bins),
+                      library=(None, "none: no PyTorch call computes "
+                               "per-block stable ranks and block "
+                               "histograms; torch.sort(stable=True) is its "
+                               "consumers' yardstick (partition_order row)"),
+                      n_bytes=n * 8 + -(-n // kernels.RANK_BLOCK) * bins * 4)
         rows.setdefault("rank_hist", row)
     # the distributed layer's binning in a world of one (phase 4c): a
     # 2^25-lane gather chunk's digits, 0 for the rank and 1 for dead
@@ -400,29 +416,125 @@ def _phase_radix_kernels(dev, gen, errs):
     got = kernels.rank_hist_cuda(digits, 2)
     want = rank_and_hist_torch(digits, 2)
     torch.cuda.synchronize()
-    report("rank_hist", "n=2^25 digits in [0, 1], n_bins=2 (phase 4c's "
-           "binning)", list(zip(got, want)),
-           lambda: kernels.rank_hist_cuda(digits, 2),
-           lambda: rank_and_hist_torch(digits, 2),
-           library=(None, "none: see the 2^24 rows"),
-           n_bytes=n_d * 8 + -(-n_d // kernels.RANK_BLOCK) * 2 * 4)
+    _report(errs, "rank_hist", "n=2^25 digits in [0, 1], n_bins=2 (phase "
+            "4c's binning)", list(zip(got, want)),
+            lambda: kernels.rank_hist_cuda(digits, 2),
+            lambda: rank_and_hist_torch(digits, 2),
+            library=(None, "none: see the 2^24 rows"),
+            n_bytes=n_d * 8 + -(-n_d // kernels.RANK_BLOCK) * 2 * 4)
     del digits, got, want
 
     keys = torch.randint(0, 1 << 18, (n,), generator=gen, device=dev,
                          dtype=torch.int32)
     digits = keys & 255
     want = torch.sort(digits, stable=True).indices.to(torch.int32)
-    report("partition_order", "n=2^24 256 digits vs torch.sort(stable)",
-           [(partition_order(digits, 256)[0], want)],
-           lambda: partition_order(digits, 256),
-           lambda: torch.sort(digits, stable=True), profile=16)
+    _report(errs, "partition_order",
+            "n=2^24 256 digits vs torch.sort(stable)",
+            [(partition_order(digits, 256)[0], want)],
+            lambda: partition_order(digits, 256),
+            lambda: torch.sort(digits, stable=True), profile=16)
     want = torch.sort(keys, stable=True).indices.to(torch.int32)
-    report("radix_sort_order",
-           "n=2^24 18-bit keys, 9-bit digits vs torch.sort(stable)",
-           [(radix_sort_order(keys, 18, 9), want)],
-           lambda: radix_sort_order(keys, 18, 9),
-           lambda: torch.sort(keys, stable=True), profile=16)
+    _report(errs, "radix_sort_order",
+            "n=2^24 18-bit keys, 9-bit digits vs torch.sort(stable)",
+            [(radix_sort_order(keys, 18, 9), want)],
+            lambda: radix_sort_order(keys, 18, 9),
+            lambda: torch.sort(keys, stable=True), profile=16)
     return rows
+
+
+def select_cases(disc, qty):
+    """SSB flight 1's fact filters by predicate count: Q1.1's discount
+    < 4, then with its quantity < 25, then Q1.2's two windows."""
+    from radixhashjoin_tpu_torch.ops.filter import OP_GT, OP_LT
+    return {1: [(disc, OP_LT, 4)],
+            2: [(disc, OP_LT, 4), (qty, OP_LT, 25)],
+            4: [(disc, OP_GT, 0), (disc, OP_LT, 4), (qty, OP_GT, 25),
+                (qty, OP_LT, 36)]}
+
+
+def select_mask(rows, count, preds):
+    """The conjunction's lane mask over the live prefix [0, count) of the
+    identity (rows None) or of the rowids `rows`."""
+    import torch
+    from radixhashjoin_tpu_torch.ops.filter import _compare, gather_clamped
+    col = preds[0][0]
+    lanes = col.shape[0] if rows is None else rows.shape[0]
+    m = torch.arange(lanes, device=col.device) < count
+    for col, op, value in preds:
+        m &= _compare(col if rows is None else gather_clamped(col, rows),
+                      value, op)
+    return m
+
+
+def select_library(rows, count, preds, pad):
+    """The select from library calls, the plain design beside the
+    kernel: the conjunction's mask, torch.nonzero_static(size=pad,
+    fill_value=0) and one int32 cast (on rowid input a gather of the
+    rowids, the lanes past the count zeroed). Returns what
+    ops/filter.py filter_conj returns."""
+    import torch
+    m = select_mask(rows, count, preds)
+    idx = torch.nonzero_static(m, size=pad, fill_value=0).squeeze(1)
+    cnt = m.sum(dtype=torch.int32)
+    if rows is None:
+        return idx.to(torch.int32), cnt
+    live = torch.arange(pad, device=m.device) < cnt
+    return torch.where(live, rows[idx], 0), cnt
+
+
+def _phase_select_kernel(dev, gen, errs, log_lanes=SELECT_LOG_LANES):
+    """The select kernel (kernels.select_cuda, through ops/filter.py
+    filter_conj) against its plain version, the chain of one-predicate
+    filters (filter_conj_torch), at 2^log_lanes lanes of SSB flight 1's
+    columns (a discount in [0, 10], a quantity in [1, 50]): 1, 2 and 4
+    predicates on the identity and on rowid input (the 1-predicate
+    case's survivors, a device count), each output padded to the lanes.
+    Beside each: torch.nonzero_static of the prebuilt mask (the library
+    call), the whole select from library calls (`select_library`, exact
+    too) and the bytes bound (each distinct column over the live lanes,
+    the rowids, the padded output). Returns the 2-predicate identity
+    row, the filter layer's shape."""
+    import torch
+    from radixhashjoin_tpu_torch.ops.filter import (filter_conj,
+                                                    filter_conj_torch)
+    errs["select"] = 0
+    n = 1 << log_lanes
+    disc = torch.randint(0, 11, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    qty = torch.randint(1, 51, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    cases = select_cases(disc, qty)
+    rows, live = filter_conj(None, n, cases[1], n)
+    n_live = int(live)
+    main_row = None
+    for mode, (r, cnt, lanes) in (("identity", (None, n, n)),
+                                  ("rowids", (rows, live, n_live))):
+        for k, preds in cases.items():
+            got = filter_conj(r, cnt, preds, n)
+            want = filter_conj_torch(r, cnt, preds, n)
+            lib = select_library(r, cnt, preds, n)
+            if not all(torch.equal(a, b) for a, b in zip(lib, want)):
+                raise AssertionError(f"select_library {mode} k={k} != plain")
+            mask = select_mask(r, cnt, preds)
+            n_cols = len({c.data_ptr() for c, _, _ in preds})
+            row = _report(
+                errs, "select", f"n=2^{log_lanes} {mode} ({lanes} live), "
+                f"{k} predicates on {n_cols} columns", list(zip(got, want)),
+                lambda: filter_conj(r, cnt, preds, n),
+                lambda: filter_conj_torch(r, cnt, preds, n),
+                library=("torch.nonzero_static(mask, size=pad, fill_value=0)"
+                         " of the prebuilt mask",
+                         lambda: torch.nonzero_static(mask, size=n,
+                                                      fill_value=0)),
+                n_bytes=4 * (n_cols * lanes + n
+                             + (lanes if r is not None else 0)),
+                extra={"survivors": int(got[1]),
+                       "library_path_ms": _time_ms(
+                           lambda: select_library(r, cnt, preds, n))})
+            if mode == "identity" and k == 2:
+                main_row = row
+            del got, want, lib, mask
+    return main_row
 
 
 # ---- phase 3: the CLI on a contest-shaped synthetic catalog ----
@@ -2113,10 +2225,18 @@ def main() -> int:
         walls[fn.__name__] = time.perf_counter() - t0
         return out
     timed, errs = timed_phase(phase_kernels, dev)
+    # the select kernel counts apart from LAUNCHES: from zero over the
+    # in-process CLI and settings runs, whose stage ops and per-query
+    # executor filter through it
+    kernels.SELECT_LAUNCHES = 0
     launches = timed_phase(phase_cli, dev)
     timed_phase(phase_faults, dev)
     default_lines = timed_phase(phase_fallback_cli, dev)
     launches_settings = timed_phase(phase_settings_cli, dev)
+    launches_select = {"select": kernels.SELECT_LAUNCHES}
+    if launches_select["select"] == 0:
+        raise AssertionError("the main path's filters skipped the select "
+                             "kernel")
     _lines, dist = timed_phase(phase_scale, dev)
     _lines, launches_huge = timed_phase(phase_huge, dev)
     if min(launches_huge[k] for k in WAVE_KERNELS) == 0:
@@ -2153,6 +2273,7 @@ def main() -> int:
             raise AssertionError(f"the port's run imported {pkg}")
     tables = "radixhashjoin_tpu_torch/csrc/tables.cu"
     radix = "radixhashjoin_tpu_torch/csrc/radix.cu"
+    select = "radixhashjoin_tpu_torch/csrc/select.cu"
     rows = [
         ("weighted_bincount_cuda", "bincount", tables,
          "radixhashjoin_tpu/ops/tables.py:283", launches),
@@ -2163,7 +2284,10 @@ def main() -> int:
         ("radix_histogram_cuda", "radix_hist", radix,
          "radixhashjoin_tpu/ops/pallas_radix.py:55", launches_radix),
         ("rank_hist_cuda", "rank_hist", radix,
-         "radixhashjoin_tpu/ops/pallas_partition.py:92", launches_dist)]
+         "radixhashjoin_tpu/ops/pallas_partition.py:92", launches_dist),
+        ("select_cuda", "select", select,
+         "none: radixhashjoin_tpu/ops/filter.py and ops/compact.py are "
+         "plain jnp", launches_select)]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[key], "max_abs_err": errs[key],

@@ -16,6 +16,8 @@ kernels live in csrc/tables.cu, and SUMs fold exactly in int64
 (utils/limbs.py). The per-query executor (models/executor.py), the
 radix kernels of csrc/radix.cu, the distributed layer (parallel/) and
 every table variant of the JAX package's ops/tables.py are ported too.
+The per-op paths' filters run as one conjunctive select kernel a
+filtered slot (csrc/select.cu, ops/filter.py filter_conj).
 
 This package imports neither jax nor radixhashjoin_tpu: its host
 modules (config, storage, workload, oracle) are its own, each naming

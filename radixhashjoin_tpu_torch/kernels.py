@@ -11,6 +11,7 @@ module on machines with no nvcc and no card.
     csrc/tables.cu  rhj_weighted_bincount, rhj_table_gather,
                     rhj_table_gather2
     csrc/radix.cu   rhj_radix_histogram, rhj_rank_hist
+    csrc/select.cu  rhj_select
 
 A missing nvcc, a failed build, a refused launch or a wrong operand
 raises. There is no fallback: the ops modules send only CUDA tensors
@@ -19,7 +20,9 @@ here, and a CUDA tensor either runs the kernel or fails.
 `LAUNCHES` counts kernel launches per wrapper ("bincount", "gather",
 "gather2", "radix_hist", "rank_hist"), so a run can show that a path
 went through these kernels; `counted(fn)` reads the launches of one
-call.
+call. `SELECT_LAUNCHES` counts `select_cuda`'s launches apart from them:
+a traced benchmark run compares LAUNCHES with the csrc kernels its
+capture knows by name, and the select kernel is not among those yet.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import torch
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {name: os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
-           for name in ("tables", "radix")}
+           for name in ("tables", "radix", "select")}
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
@@ -46,9 +49,13 @@ NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"
 RADIX_HIST_MAX_BINS = 32 * 1024
 RANK_HIST_MAX_BINS = 227 * 1024 // 8 - 1
 RANK_BLOCK = 2048
+# mirror kMaxPreds / kTile of csrc/select.cu
+SELECT_MAX_PREDS = 4
+SELECT_TILE = 4096
 
 LAUNCHES = {"bincount": 0, "gather": 0, "gather2": 0, "radix_hist": 0,
             "rank_hist": 0}
+SELECT_LAUNCHES = 0
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -87,12 +94,13 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 
-def build() -> dict:
-    """Compile every source whose library does not exist yet, one nvcc
-    per source, all started together. Returns {"paths": {name: path},
-    "seconds": wall time of the builds (0.0 when all existed), "log"}.
-    Raises on any failure."""
-    paths = {name: library_path(name) for name in SOURCES}
+def build(names=None) -> dict:
+    """Compile every source of `names` (default: all of SOURCES) whose
+    library does not exist yet, one nvcc per source, all started
+    together. Returns {"paths": {name: path}, "seconds": wall time of the
+    builds (0.0 when all existed), "log"}. Raises on any failure."""
+    paths = {name: library_path(name)
+             for name in (SOURCES if names is None else names)}
     missing = [name for name, p in paths.items() if not os.path.exists(p)]
     if not missing:
         return {"paths": paths, "seconds": 0.0, "log": ""}
@@ -122,7 +130,12 @@ def build() -> dict:
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    if name == "tables":
+    if name == "select":
+        lib.rhj_select.argtypes = [ptr, i64, ptr, i64, ptr, ptr, i32, ptr,
+                                   ptr, ptr, i32, ptr, i64, ptr, ptr, i32,
+                                   ptr]
+        lib.rhj_select.restype = i32
+    elif name == "tables":
         lib.rhj_weighted_bincount.argtypes = [ptr, ptr, i64, ptr, i32, i32,
                                               ptr]
         lib.rhj_weighted_bincount.restype = i32
@@ -140,8 +153,11 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
 
 
 def _load(name: str) -> ctypes.CDLL:
+    """The bound library of SOURCES[name], built at first use: only that
+    source, so a path that launches one library's kernels never waits for
+    the others' nvcc."""
     if name not in _libs:
-        lib = ctypes.CDLL(build()["paths"][name])
+        lib = ctypes.CDLL(build((name,))["paths"][name])
         _bind(name, lib)
         _libs[name] = lib
     return _libs[name]
@@ -334,3 +350,96 @@ def rank_hist_cuda(digits: torch.Tensor, n_bins: int
     _raise_on(err, "rhj_rank_hist")
     LAUNCHES["rank_hist"] += 1
     return ranks, hists
+
+
+def select_cuda(rows: Optional[torch.Tensor],
+                count: Union[int, torch.Tensor], preds, pad: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(int32[pad], 0-d int32): one launch of the conjunctive select.
+
+    The live set is lanes [0, count) of `rows` (padded int32 rowids) or,
+    with rows None, of the identity over the columns' common length.
+    preds: 1 to SELECT_MAX_PREDS (int32 column, opcode, int32 constant),
+    opcodes of ops/filter.py (OP_EQ, OP_LT, OP_GT); a column given twice
+    is read once. A live lane survives when every predicate holds on its
+    row's value (a rowid outside the column reads the nearest end, an
+    empty column 0). Returns the survivors' rowids in lane order, then
+    zeros, cut to `pad` lanes, and the number of survivors, on the
+    device: `count` (an int, or one int32 value on the same card) is read
+    there, and nothing is read back."""
+    global SELECT_LAUNCHES
+    preds = list(preds)
+    if not 1 <= len(preds) <= SELECT_MAX_PREDS:
+        raise ValueError(f"select: 1 to {SELECT_MAX_PREDS} predicates, got "
+                         f"{len(preds)}")
+    cols, pred_col = [], []
+    for col, _op, _value in preds:
+        _check("col", col)
+        at = next((c for c, seen in enumerate(cols)
+                   if seen.data_ptr() == col.data_ptr()
+                   and seen.shape == col.shape), None)
+        if at is None:
+            at = len(cols)
+            cols.append(col)
+        pred_col.append(at)
+    device = cols[0].device
+    if any(c.device != device for c in cols):
+        raise ValueError("select: columns on different devices")
+    if rows is None:
+        n = cols[0].shape[0]
+        if any(c.shape[0] != n for c in cols):
+            raise ValueError("select: the identity needs columns of one "
+                             "length")
+    else:
+        _check("rows", rows)
+        if rows.device != device:
+            raise ValueError("rows/columns: device mismatch")
+        n = rows.shape[0]
+    if n >= 2**31:
+        raise ValueError(f"select: {n} lanes do not fit int32 rowids")
+    ops, vals = [], []
+    for _col, op, value in preds:
+        if op not in (0, 1, 2):
+            raise ValueError(f"select: unknown opcode {op}")
+        if not -2**31 <= int(value) < 2**31:
+            raise ValueError(f"select: constant {value} outside int32")
+        ops.append(int(op))
+        vals.append(int(value))
+    pad = int(pad)
+    if pad < 0:
+        raise ValueError(f"select: pad {pad} < 0")
+    count_dev, host_count = None, 0
+    if isinstance(count, torch.Tensor):
+        if count.device != device or count.numel() != 1:
+            raise ValueError("count: expected one value on the columns' "
+                             "device")
+        count_dev = count.reshape(1).to(torch.int32).contiguous()
+    else:
+        host_count = max(min(int(count), n), 0)
+    out = torch.empty(pad, dtype=torch.int32, device=device)
+    new_count = torch.empty((), dtype=torch.int32, device=device)
+    if n == 0:
+        out.zero_()
+        new_count.zero_()
+        return out, new_count
+    k = len(cols)
+    addrs = (ctypes.c_longlong * k)(*(c.data_ptr() for c in cols))
+    lens = (ctypes.c_longlong * k)(*(c.shape[0] for c in cols))
+    m = len(preds)
+    c_col = (ctypes.c_int * m)(*pred_col)
+    c_op = (ctypes.c_int * m)(*ops)
+    c_val = (ctypes.c_int * m)(*vals)
+    scratch = torch.empty(-(-n // SELECT_TILE) + 1, dtype=torch.int64,
+                          device=device)
+    lib = _load("select")
+    sms, stream = _launch_env(cols[0])
+    with torch.cuda.device(device):
+        err = lib.rhj_select(
+            rows.data_ptr() if rows is not None else None, n,
+            count_dev.data_ptr() if count_dev is not None else None,
+            host_count, addrs, lens, k, c_col, c_op, c_val, m,
+            out.data_ptr(), pad, new_count.data_ptr(), scratch.data_ptr(),
+            sms, stream)
+    _raise_on(err, "rhj_select")
+    SELECT_LAUNCHES += 1
+    return out, new_count

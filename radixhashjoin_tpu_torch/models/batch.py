@@ -36,10 +36,12 @@ readbacks (device-to-host copies), spec retries, factorized queries.
 per-op path's operators and each stage, at the reference's record sites.
 Spans (utils/profiling.py `span`, armed only under a torch.profiler
 capture) name the per-op path's layers: batch.run, batch.readback,
-filter, join.probe / join.expand / join.match and aggregate, with the
-sort join's padded and live right rows that it sorts (join.sorted_rows,
-join.live_rows) and the padded left lanes that it binary-searches
-(join.searched_rows).
+filter (one conjunctive select a filtered slot, ops/filter.py
+filter_conj, which counts its kernel passes and predicates as
+filter.passes and filter.predicates), join.probe / join.expand /
+join.match and aggregate, with the sort join's padded and live right
+rows that it sorts (join.sorted_rows, join.live_rows) and the padded
+left lanes that it binary-searches (join.searched_rows).
 There is no route to the oracle, to the per-query executor or to the
 CPU.
 """
@@ -54,7 +56,7 @@ from ..config import DEFAULT, EngineConfig
 from ..ops.aggregate import gather_partials_matrix
 from ..ops.backend import JoinBackend
 from ..ops.chain import eq_filter_matrix, eq_filter_rows
-from ..ops.filter import filter_full, filter_live
+from ..ops.filter import filter_conj
 from ..ops.join import JoinCapacityError
 from ..ops.stage import part_shape, run_stage
 from ..ops.terminal import channel_spec, terminal_join_and_project
@@ -150,27 +152,20 @@ class BatchExecutor:
             n = cat.relations[q.slots[s]].num_tuples
             st.live_rows.append(cat.iota(cat.bucket(n)))
             st.live_cnt.append(n)
-        pristine = set(range(len(q.slots)))
+        # every slot is still the identity: one conjunctive select a
+        # filtered slot (its counts only shrink, so one NULL flag does)
+        preds: Dict[int, list] = {}
         for f in q.filters:
-            col = cat.col(q.slots[f.slot], f.col)
             opc, const = cat.encode_filter(f.op, f.value)
+            preds.setdefault(f.slot, []).append(
+                (cat.col(q.slots[f.slot], f.col), opc, const))
+        for slot, conj in preds.items():
+            n = st.live_cnt[slot]
             with span("filter", self.device):
-                if f.slot in pristine:
-                    # first filter on the slot: scan the column directly
-                    n = cat.relations[q.slots[f.slot]].num_tuples
-                    rows, cnt = self.profiler.record(
-                        "filter",
-                        filter_full(col, n, const, opc, cat.bucket(n)),
-                        (col,))
-                    pristine.discard(f.slot)
-                else:
-                    # the column is point-gathered, not scanned
-                    rows, cnt = self.profiler.record(
-                        "filter",
-                        filter_live(st.live_rows[f.slot],
-                                    st.live_cnt[f.slot], col, const, opc),
-                        (st.live_rows[f.slot],))
-                st.live_rows[f.slot], st.live_cnt[f.slot] = rows, cnt
+                rows, cnt = self.profiler.record(
+                    "filter", filter_conj(None, n, conj, cat.bucket(n)),
+                    [col for col, _, _ in conj])
+                st.live_rows[slot], st.live_cnt[slot] = rows, cnt
                 st.flags.append(cnt == 0)   # device bool; NULL if ever true
         return st
 

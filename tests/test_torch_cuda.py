@@ -942,3 +942,173 @@ def test_dist_world_of_one_cuda_matches_oracle(dev):
                 assert kernels.LAUNCHES["rank_hist"] > before
     finally:
         multihost.shutdown()
+
+
+# ---- the conjunctive select kernel (csrc/select.cu)
+
+SELECT_N = [0, 1, kernels.SELECT_TILE - 1, kernels.SELECT_TILE,
+            kernels.SELECT_TILE + 1, (1 << 20) + 3, 1 << 24]
+INT32_MAX = 2**31 - 1
+
+
+def _select_case(dev, n, k, mode, seed):
+    """Columns (offset views for some k, so loads start unaligned),
+    predicates of every opcode with -1, 0 and INT32_MAX among the
+    constants, and for "rows" sorted padded rowids whose tail is
+    garbage (negative and past the columns)."""
+    from radixhashjoin_tpu_torch.ops.filter import OP_EQ, OP_GT, OP_LT
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    off = k % 4
+    n_cols = max(1, min(k, 3))
+    cols = []
+    for _ in range(n_cols):
+        base = torch.randint(-2, 12, (n + off + 8,), generator=g,
+                             device=dev, dtype=torch.int32)
+        base[::1013] = INT32_MAX
+        base[::997] = -1
+        cols.append(base[off:off + n])
+    consts = {OP_EQ: [-1, 0, INT32_MAX, 5], OP_LT: [INT32_MAX, 11, 10, 0, -1],
+              OP_GT: [-1, -2, 0, 1, INT32_MAX]}
+    if k == 1:
+        preds = [[(cols[0], op, v)] for op in consts for v in consts[op]]
+    else:
+        one = []
+        for i in range(k):
+            op = OP_EQ if i == 0 and rng.random() < 0.3 else int(
+                rng.choice([OP_LT, OP_GT]))
+            v = (int(rng.choice(consts[op])) if op == OP_EQ
+                 or rng.random() < 0.15 else consts[op][i % 3])
+            one.append((cols[i % n_cols], op, v))
+        preds = [one]
+    rows = None
+    if mode == "rows":
+        keep = torch.rand(n, generator=g, device=dev) < 0.7
+        live = torch.nonzero(keep).flatten().to(torch.int32)
+        tail = torch.randint(-9, n + 9, (n - live.numel() + 5,), generator=g,
+                             device=dev, dtype=torch.int32)
+        roff = (k + 1) % 4
+        rows = torch.cat([torch.zeros(roff, dtype=torch.int32, device=dev),
+                          live, tail])[roff:]
+    return preds, rows
+
+
+@pytest.mark.parametrize("mode", ["identity", "rows"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("n", SELECT_N)
+def test_select_kernel_exact(dev, n, k, mode):
+    """The kernel's rows and count equal the plain chain's bit for bit
+    (filter_conj_torch on the same card): every opcode with the
+    constants -1, 0 and INT32_MAX, identity and rowid input, live
+    counts 0, below and equal to the lanes as a host and a device
+    count, pad above and below the lanes, unaligned column and rowid
+    views, and 5 predicates as two chained launches."""
+    from radixhashjoin_tpu_torch.ops.filter import (filter_conj,
+                                                    filter_conj_torch)
+    cases, rows = _select_case(dev, n, k, mode, 1000 + 7 * n + k)
+    lanes = n if rows is None else rows.shape[0]
+    for preds in cases:
+        for live in sorted({0, lanes // 2 + 1 if lanes else 0, lanes}):
+            for pad in (lanes + 4096 + 3, lanes // 2):
+                want, want_n = filter_conj_torch(rows, live, preds, pad)
+                for cnt in (live, torch.tensor(live, dtype=torch.int32,
+                                               device=dev)):
+                    before = kernels.SELECT_LAUNCHES
+                    got, got_n = filter_conj(rows, cnt, preds, pad)
+                    torch.cuda.synchronize()
+                    assert kernels.SELECT_LAUNCHES - before == (
+                        -(-len(preds) // kernels.SELECT_MAX_PREDS)
+                        if lanes else 0)
+                    assert got.dtype == torch.int32 and got.shape == (pad,)
+                    assert got_n.dtype == torch.int32 and got_n.shape == ()
+                    assert got_n.device == got.device == want.device
+                    assert int(got_n) == int(want_n), (live, pad, preds)
+                    assert torch.equal(got, want), (live, pad)
+
+
+def test_select_kernel_one_launch_a_call_and_refusals(dev):
+    x = torch.arange(10000, dtype=torch.int32, device=dev)
+    before = kernels.SELECT_LAUNCHES
+    preds = [(x, 2, 100), (x, 1, 9000), (x, 1, 9500), (x, 2, 50)]
+    for i in range(1, 5):
+        rows, cnt = kernels.select_cuda(None, 10000, preds[:i], 16384)
+        assert kernels.SELECT_LAUNCHES == before + i
+    torch.cuda.synchronize()
+    assert int(cnt) == 8899 and torch.equal(
+        rows[:8899], torch.arange(101, 9000, dtype=torch.int32, device=dev))
+    assert not rows[8899:].any()
+    before = kernels.SELECT_LAUNCHES
+    with pytest.raises(TypeError):
+        kernels.select_cuda(None, 10, [(x.long(), 1, 3)], 16)
+    with pytest.raises(TypeError):
+        kernels.select_cuda(x.long(), 10, [(x, 1, 3)], 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.select_cuda(None, 10, [(x.cpu(), 1, 3)], 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.select_cuda(x.cpu(), 10, [(x, 1, 3)], 16)
+    with pytest.raises(ValueError):
+        kernels.select_cuda(None, torch.tensor(3), [(x, 1, 3)], 16)
+    with pytest.raises(ValueError):
+        kernels.select_cuda(None, 10, [(x[::2], 1, 3)], 16)
+    with pytest.raises(ValueError):
+        kernels.select_cuda(None, 10, [(x, 3, 3)], 16)
+    with pytest.raises(ValueError):
+        kernels.select_cuda(None, 10, [(x, 1, 2**31)], 16)
+    with pytest.raises(ValueError):
+        kernels.select_cuda(None, 10, [(x, 1, 3), (x[:5], 1, 3)], 16)
+    with pytest.raises(ValueError):
+        kernels.select_cuda(None, 10, [(x, 1, 3)] * 5, 16)
+    assert kernels.SELECT_LAUNCHES == before
+
+
+def test_ssb_flight1_selects_once_a_filtered_slot(dev):
+    """SSB flight-1 queries through Engine at the configuration's card
+    test size print the plain reference's lines; under a capture each
+    filtered slot takes one select launch, one filter span, and the
+    counters read its passes and predicates."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import generator
+    from benchmark.spec import Cell, load_benchmark
+    from benchmark.tests.test_benchmark_cells import sized
+    from radixhashjoin_tpu_torch.utils import profiling
+    from radixhashjoin_tpu_torch.workload import parse_query
+    cell = sized(Cell(load_benchmark(), "ssb_sf20.flight1"), "card")
+    seed = 2_300_000_017
+    columns = cell.schema.generate(cell.config, seed, dev)
+    engine = Engine([Relation(list(c)) for c in columns], EngineConfig(),
+                    device=dev)
+    cycle = generator.requests(
+        cell.traffic, cell.schema.templates(cell.config, columns), seed)
+    ref = cell.reference(columns, dev)
+    seen = set()
+    for label, lines, _draws in cycle:
+        if label in seen:
+            continue
+        seen.add(label)
+        queries = [parse_query(ln) for ln in lines]
+        per_slot = [{} for _ in queries]
+        for q, slots in zip(queries, per_slot):
+            for f in q.filters:
+                slots[f.slot] = slots.get(f.slot, 0) + 1
+        n_slots = sum(len(s) for s in per_slot)
+        assert all(k <= kernels.SELECT_MAX_PREDS
+                   for s in per_slot for k in s.values())
+        want = ref.lines(lines)
+        assert engine.run_batch(queries) == want       # warm (builds)
+        torch.cuda.synchronize()
+        profiling.reset_spans()
+        before = kernels.SELECT_LAUNCHES
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            got = engine.run_batch(queries)
+            torch.cuda.synchronize()
+        spans = profiling.span_totals()
+        profiling.reset_spans()
+        assert got == want, label
+        assert kernels.SELECT_LAUNCHES - before == n_slots
+        assert spans["filter"]["calls"] == n_slots
+        assert spans["filter.passes"]["count"] == n_slots
+        assert spans["filter.predicates"]["count"] == sum(
+            len(q.filters) for q in queries)
+    assert seen == {"q1.1", "q1.2", "q1.3"}
