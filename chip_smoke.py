@@ -17,11 +17,7 @@ Phases (any failure raises and exits non-zero; nothing is swallowed):
      bench_tables (Zipf and uniform 2^26-row builds, shared-memory-size
      tables, lookups into 2^20-, 2^18-, 48K- and 1024-entry tables, the
      fused double lookup rhj_table_gather2 into two 2^20-entry tables
-     beside two lookups and two index_selects); then the JAX package's
-     table variants at 2^24 rows (bench_tables.variant_rows: builds xla,
-     sorted, hier1024, hier2048, mxu; lookups xla, onehot, xla_sorted,
-     diffcum, hier, gather2), each exact against the plain version, timed
-     beside the hand kernel on the same inputs; the
+     beside two lookups and two index_selects); the
      rank kernel on uniform, one-hot, sorted-run and all-dead digits and
      on phase 4c's 2-bin binning at 2^25 digits; the
      partition and the 18-bit radix sort built on the rank kernel against
@@ -41,45 +37,40 @@ Phases (any failure raises and exits non-zero; nothing is swallowed):
      (a repeated case-3 edge after a fusion) under the default and
      `--mesh 1` prints NULL NULL, fault B (a case-1 wipe) under
      `--reorder-joins` prints 30, the oracle's lines;
-  3b. the same catalog through `--no-batch` (the per-query executor):
-     the 50 tree queries plus 20 queries the factorized wave does not
-     plan (cycles, same-slot predicates, no joins), in two batches, as a
-     subprocess and in-process; every line equals the oracle's and the
-     tree queries' lines equal the batch path's;
-  3c. the same 70 queries through the default CLI (the batch path): as
-     a subprocess and in-process, lines equal to the oracle's and to
-     `--no-batch`'s; 50 queries in the factorized wave, 20 as
-     materialized stage ops, none on the per-query executor;
-  3d. the same 70 queries under every engine setting and CLI flag: the
-     default CLI through the C++ host runtime (runtime/native, its
-     library built at first use and used), --no-native, --oracle,
-     --profile (its per-operator table, shares at most 100%), --backend
-     sort and --reorder-joins as subprocesses started together, then
-     stage_group 1, 8 and 64, ftree_wave=False and defer_middle=False
-     in-process with their dispatches and launches and a sync check;
-     every line equals the oracle's. Then one ftree_scatter /
-     ftree_gather pair per table name (TABLE_PAIRS; "mxu", whose one-hot
-     grows with the table, on bench_scale's small-dimension star at 2^22
-     fact rows, the rest on the 70 queries), and the window builds'
-     names (WINDOW_PAIRS: "hier_presorted", "hier", "mxu") through the
-     huge-node pass on a 2^23 + 4099-row star past shrunken thresholds
-     (every window built under the name), each exact, with its sync
-     check: 0 synchronizing calls inside a round. Then native against
+  3b. the same catalog through `--backend sort` (the batch path's
+     per-op sort join, no factorized wave): the 50 tree queries plus 20
+     queries the factorized wave does not plan (cycles, same-slot
+     predicates, no joins), in two batches, as a subprocess and
+     in-process; every line equals the oracle's and the tree queries'
+     lines equal the default's;
+  3c. the same 70 queries through the default CLI: as a subprocess and
+     in-process, lines equal to the oracle's and to `--backend sort`'s;
+     50 queries in the factorized wave, 20 as materialized stage ops;
+  3d. the same 70 queries under every other engine setting and CLI
+     flag: the default CLI through the C++ host runtime (runtime/native,
+     its library built at first use and used), --no-native, --oracle,
+     --profile (its per-operator table, shares at most 100%) and
+     --reorder-joins as subprocesses started together, then stage_group
+     1, 8 and 64, ftree_wave=False and defer_middle=False in-process
+     with their dispatches and launches and a sync check; every line
+     equals the oracle's. Then the huge-node pass under the default on a
+     2^23 + 4099-row star past shrunken thresholds (a window build at
+     least once a window), exact, with its sync check: 0 synchronizing
+     calls inside a round. Then native against
      Python load and parse seconds (this catalog, and a star of phase
      4's shape written to files), and the A/B of warm walls: one round,
      64-query rounds and per-query ftree ops, in turns, ten runs each.
      The in-process runs of phases 3-3d, counted from zero, must launch
-     the select kernel (their stage ops' and per-query filters);
+     the select kernel (their per-op and stage ops' filters);
   4. data scale through Engine.run_workload: a Zipf(1.1) fact of 2^27
      rows over 2^20 keys joined with a 2^20-row dimension, and a star of
      a 2^24-row fact with two 2^20-row dimensions, each against its
      closed-form NumPy oracle (data and oracle from bench_scale's
-     zipf_join and star); the star again through the per-query
-     executor and through the batch path's materialized fallback (the
-     dense fused stage with factorized=False, and the sort backend's
-     per-op path), and a cyclic triangle of 2^20-row relations
-     through the per-query executor and the batch path, against the
-     port's oracle. The fallback runs print their stage ops, readbacks,
+     zipf_join and star); the star again through the batch path's
+     materialized fallback (the dense fused stage with factorized=False,
+     and the sort backend's per-op path), and a cyclic triangle of
+     2^20-row relations through the same two, against the port's
+     oracle. The fallback runs print their stage ops, readbacks,
      dispatches, launches, peak memory and top device ops, and count the
      synchronizing calls of a warm run under
      torch.cuda.set_sync_debug_mode("warn"): none inside a round, one
@@ -127,7 +118,7 @@ Phases (any failure raises and exits non-zero; nothing is swallowed):
      twin's cold pass, the planner's first run of each order) and join
      the kernels line; each dense probe, engine config, the chain and the
      twin must launch the build and lookup, the skew join the rank
-     kernel. The planner's per-query path joins with the sort probe and
+     kernel. The planner's sort-backend runs join with the sort probe and
      launches none; the timed calls and bench_microops' timing loops are
      not counted;
   7. the rest of the distributed layer, its pipelined chunk loops and
@@ -202,20 +193,10 @@ DIST_AB_PAIRS = 5
 WAVE_KERNELS = ("bincount", "gather")
 # a dense probe's kernels: the build and the fused double lookup
 PROBE_KERNELS = ("bincount", "gather2")
-# phase 3d: one (ftree_scatter, ftree_gather) pair per table name of
-# ops/tables.py besides the default ("auto", "auto"): TABLE_PAIRS through
-# scatter_table and table_gather, on the 70 queries ("mxu" on the
-# small-dimension star of MXU_STAR_ROWS fact rows); WINDOW_PAIRS, the
-# names scatter_add_window branches on, through the huge-node pass on
-# bench_scale's star_big of WINDOW_FACT_ROWS fact rows over
-# SMALL_DIM_KEYS keys, with _BIG_WAVE_ROWS, _NARROW_PLANE_MIN_ROWS and
-# _BIG_WINDOW_ROWS shrunk to WINDOW_WAVE_ROWS / WINDOW_WAVE_ROWS /
-# WINDOW_ROWS for the run
-TABLE_PAIRS = (("xla", "xla"), ("onehot", "onehot"), ("hier", "auto"),
-               ("sorted", "onehot"), ("mxu", "auto"))
-MXU_STAR_ROWS = 1 << 22
-WINDOW_PAIRS = (("hier_presorted", "xla"), ("hier", "onehot"),
-                ("mxu", "auto"))
+# phase 3d: the huge-node window pass under the default config, on
+# bench_scale's star_big of WINDOW_FACT_ROWS fact rows over SMALL_DIM_KEYS
+# keys, with _BIG_WAVE_ROWS, _NARROW_PLANE_MIN_ROWS and _BIG_WINDOW_ROWS
+# shrunk to WINDOW_WAVE_ROWS / WINDOW_WAVE_ROWS / WINDOW_ROWS for the run
 WINDOW_FACT_ROWS = (1 << 23) + 4099
 WINDOW_WAVE_ROWS = 1 << 22
 WINDOW_ROWS = 1 << 21
@@ -307,11 +288,6 @@ def phase_kernels(dev):
                   f"n={kk.numel()} bins={b}")
     timed.update(_phase_radix_kernels(dev, gen, errs))
     timed["select"] = _phase_select_kernel(dev, gen, errs)
-    t0 = time.perf_counter()
-    variants = bench_tables.variant_rows(dev, out=sys.stdout)
-    print(json.dumps({"phase": "table_variants", "rows": len(variants),
-                      "all_exact": all(r["exact"] for r in variants),
-                      "seconds": time.perf_counter() - t0}))
     return timed, errs
 
 
@@ -686,16 +662,17 @@ def _contest_files(tmp, dev):
     return paths, loaded, tree, bench.contest_work(tree, extra), kinds
 
 
-# ---- phase 3b: the per-query path (--no-batch) on the same catalog ----
+# ---- phase 3b: the sort backend (--backend sort) on the same catalog ----
 
 def phase_fallback_cli(dev):
     """The contest-shaped catalog's 50 tree queries plus 20 queries the
-    factorized wave does not plan, in two batches: through `--no-batch`
-    (phase 3b) and through the default batch path (phase 3c), each as a
+    factorized wave does not plan, in two batches: through `--backend
+    sort` (phase 3b: the batch path's per-op sort join, no factorized
+    wave) and through the default batch path (phase 3c), each as a
     subprocess and in-process. Every line equals the oracle's, the two
-    paths' lines are equal, and the batch path answers all 70 itself:
-    50 in its factorized wave, 20 as materialized stage ops, none on the
-    per-query executor."""
+    backends' lines are equal, and the default answers the 50 tree
+    queries in its factorized wave and the 20 others as materialized
+    stage ops."""
     from radixhashjoin_tpu_torch import kernels
     from radixhashjoin_tpu_torch.config import EngineConfig
     from radixhashjoin_tpu_torch.models.engine import Engine, main
@@ -716,8 +693,8 @@ def phase_fallback_cli(dev):
         stream = "\n".join(paths + ["Done"] + work) + "\n"
         lines = {}
         for label, args, cfg in (
-                ("no_batch_cli", ["--no-batch"],
-                 EngineConfig(batch_execution=False)),
+                ("sort_cli", ["--backend", "sort"],
+                 EngineConfig(join_backend="sort")),
                 ("default_cli", [], EngineConfig())):
             t0 = time.perf_counter()
             proc = subprocess.run(
@@ -747,9 +724,7 @@ def phase_fallback_cli(dev):
                 raise AssertionError(f"{label} tree lines differ from the "
                                      f"batch path's")
             lines[label] = got
-            executor = dict(engine.executor.counters)
-            batch = (dict(engine.batch_executor.counters)
-                     if engine.batch_executor is not None else None)
+            counters = dict(engine.batch_executor.counters)
             warm = []
             for _ in range(3):
                 t0 = time.perf_counter()
@@ -765,23 +740,23 @@ def phase_fallback_cli(dev):
                 "tree_lines_equal_batch_path": True,
                 "cli_subprocess_s": cli_s, "inprocess_first_s": first_s,
                 "inprocess_warm_s": warm, "oracle_s": oracle_s,
-                "counters": executor if batch is None else batch,
-                "launches": launches}
-            if batch is not None:
-                # every query on the batch path: 50 in the wave, none on
-                # the per-query executor
-                if batch["ftree_queries"] != len(batch_lines):
-                    raise AssertionError(f"ftree queries {batch}")
-                if executor["queries"] != 0:
-                    raise AssertionError(f"per-query executor ran {executor}")
+                "counters": counters, "launches": launches}
+            if label == "sort_cli":
+                # the per-op sort join answers every query
+                if counters["ftree_queries"] != 0:
+                    raise AssertionError(f"--backend sort ran the wave: "
+                                         f"{counters}")
+            else:
+                # 50 queries in the wave, the rest as stage ops
+                if counters["ftree_queries"] != len(batch_lines):
+                    raise AssertionError(f"ftree queries {counters}")
                 if dev.type == "cuda" and min(launches[k]
                                               for k in WAVE_KERNELS) == 0:
                     raise AssertionError(f"{label} skipped a kernel: "
                                          f"{launches}")
-                row["torch_executor_queries"] = executor["queries"]
-                row["lines_equal_no_batch"] = got == lines["no_batch_cli"]
-                if not row["lines_equal_no_batch"]:
-                    raise AssertionError("default and --no-batch lines "
+                row["lines_equal_sort"] = got == lines["sort_cli"]
+                if not row["lines_equal_sort"]:
+                    raise AssertionError("default and --backend sort lines "
                                          "differ")
                 if dev.type == "cuda":
                     row["device_profile"] = _profile(
@@ -874,12 +849,13 @@ def phase_settings_cli(dev):
     """Phase 3c's 70 queries under every engine setting and CLI flag:
     the default CLI (the C++ host runtime's loader, parser and formatter,
     its library built from runtime/native/rhj_host.cpp and used),
-    --no-native, --oracle, --profile, --backend sort and --reorder-joins
-    as subprocesses started together, then in-process stage_group 1, 8
-    and 64, ftree_wave=False and defer_middle=False. Every line equals
-    the port's oracle (the reordered queries' under --reorder-joins);
-    every run but the oracle's and the sort backend's (whose per-op path
-    runs neither) launches the build and lookup kernels. Then native
+    --no-native, --oracle, --profile and --reorder-joins as subprocesses
+    started together (--backend sort is phase 3b's), then in-process
+    stage_group 1, 8 and 64, ftree_wave=False and defer_middle=False.
+    Every line equals the port's oracle (the reordered queries' under
+    --reorder-joins); every run but the oracle's launches the build and
+    lookup kernels. Then the huge-node window pass (_huge_windows), then
+    native
     against Python load and parse seconds, on this catalog and on a star
     of phase 4's shape written to files, and the A/B of warm walls: one
     round against stage_group=64 and ftree_wave=False, interleaved.
@@ -911,7 +887,6 @@ def phase_settings_cli(dev):
         # the CLI's flags, each a process of its own, started together
         flag_sets = {"default": [], "no_native": ["--no-native"],
                      "oracle": ["--oracle"], "profile": ["--profile"],
-                     "backend_sort": ["--backend", "sort"],
                      "reorder_joins": ["--reorder-joins"]}
         t0 = time.perf_counter()
         procs = {name: subprocess.Popen(
@@ -935,8 +910,7 @@ def phase_settings_cli(dev):
             tag = [ln for ln in err.splitlines()
                    if ln.startswith("LAUNCHES ")]
             launches = json.loads(tag[-1][len("LAUNCHES "):])
-            kernel_run = name not in ("oracle", "backend_sort")
-            if (dev.type == "cuda" and kernel_run
+            if (dev.type == "cuda" and name != "oracle"
                     and min(launches[k] for k in WAVE_KERNELS) == 0):
                 raise AssertionError(f"CLI {flag_sets[name]} skipped a "
                                      f"kernel: {launches}")
@@ -1013,7 +987,9 @@ def phase_settings_cli(dev):
                 eng, lambda: eng.run_workload(batches))
         print(json.dumps(row))
         del engines
-        add(_table_pairs(dev, paths, batches, want))
+        windows = _huge_windows(dev)
+        add(windows["launches"])
+        print(json.dumps({"phase": "settings_windows", **windows}))
 
         # the A/B: warm walls, one round against 64-query rounds and
         # per-query ftree ops, in turns
@@ -1064,73 +1040,14 @@ def phase_settings_cli(dev):
     return total
 
 
-def _table_pairs(dev, paths, batches, want, window_rows=WINDOW_FACT_ROWS):
-    """One ftree_scatter / ftree_gather pair per table name, in-process:
-    the 70 queries (the catalog at `paths`, the oracle's lines `want`)
-    under each of TABLE_PAIRS but "mxu", which builds a one-hot of every
-    row against every bin of the wave's table (~2^24 bins here) and runs
-    on bench_scale's small-dimension star instead (2 x 1024 bins); then
-    each of WINDOW_PAIRS through the huge-node pass (_table_windows).
-    Each run exact against the oracle or the closed form, its launches
-    counted from 0, its counters, and on the card the sync check of a
-    warm run. Returns the launches, summed."""
-    from radixhashjoin_tpu_torch import bench_scale, kernels
-    from radixhashjoin_tpu_torch.config import EngineConfig
-    from radixhashjoin_tpu_torch.models.engine import Engine
-    total = {k: 0 for k in kernels.LAUNCHES}
-    runs = {}
-    t_phase = time.perf_counter()
-    for scatter, gather in TABLE_PAIRS:
-        cfg = EngineConfig(ftree_scatter=scatter, ftree_gather=gather)
-        if scatter == "mxu":
-            case = bench_scale.star(MXU_STAR_ROWS, np.random.default_rng(0),
-                                    bench_scale.SMALL_DIM_KEYS)
-            eng = Engine(case.rels, cfg, device=dev)
-            work, expect = [[case.query]], case.expected
-        else:
-            eng = Engine.from_paths(paths, cfg, device=dev)
-            work, expect = batches, want
-        t0 = time.perf_counter()
-        got, launches = kernels.counted(lambda: eng.run_workload(work))
-        first_s = time.perf_counter() - t0
-        if got != expect:
-            raise AssertionError(f"tables {scatter}/{gather}: lines differ "
-                                 f"from the oracle's")
-        if (dev.type == "cuda" and (scatter, gather) == ("onehot", "onehot")
-                and min(launches[k] for k in WAVE_KERNELS) == 0):
-            raise AssertionError(f"tables onehot skipped a kernel: "
-                                 f"{launches}")
-        for k in total:
-            total[k] += launches[k]
-        run = {"workload": "small_dim_star" if scatter == "mxu"
-               else "70_queries", "first_s": first_s, "launches": launches,
-               "ftree_queries": eng.batch_executor.counters["ftree_queries"]}
-        if dev.type == "cuda":
-            run["sync_check"] = _sync_check(eng,
-                                            lambda: eng.run_workload(work))
-        runs[f"{scatter}/{gather}"] = run
-        del eng
-    seconds = {"table_pairs": time.perf_counter() - t_phase}
-    t0 = time.perf_counter()
-    windows = _table_windows(dev, window_rows)
-    seconds["window_pairs"] = time.perf_counter() - t0
-    for name, run in windows.items():
-        for k in total:
-            total[k] += run["launches"][k]
-        runs[name] = run
-    print(json.dumps({"phase": "settings_tables", "lines_equal_oracle": True,
-                      "runs": runs, "seconds": seconds}))
-    return total
-
-
-def _table_windows(dev, fact_rows):
-    """Each of WINDOW_PAIRS through the huge-node windowed pass: the star
-    of bench_scale.star_big (fact_rows fact rows, SMALL_DIM_KEYS keys)
-    with the huge-node thresholds shrunk (see WINDOW_PAIRS), against its
-    closed form. Fails unless the pass ran scatter_add_window under the
-    pair's name at least once a window, and on the card unless the warm
-    run's sync check reads 0 synchronizing calls inside a round. Returns
-    {pair: run}."""
+def _huge_windows(dev, fact_rows=WINDOW_FACT_ROWS):
+    """The huge-node windowed pass under the default config: the star of
+    bench_scale.star_big (fact_rows fact rows, SMALL_DIM_KEYS keys) with
+    the huge-node thresholds shrunk (see WINDOW_FACT_ROWS), against its
+    closed form, its launches counted from 0. Fails unless the pass ran
+    scatter_add_window at least once a window, and on the card unless
+    the warm run's sync check reads 0 synchronizing calls inside a
+    round. Returns the run."""
     from radixhashjoin_tpu_torch import bench_scale, kernels
     from radixhashjoin_tpu_torch.config import EngineConfig
     from radixhashjoin_tpu_torch.models import device_catalog
@@ -1146,47 +1063,43 @@ def _table_windows(dev, fact_rows):
     builds = []
     window_build = factorized.scatter_add_window
 
-    def counted_build(acc, idxs, weights, impl="auto"):
-        builds.append(impl)
-        return window_build(acc, idxs, weights, impl)
-    runs = {}
+    def counted_build(acc, idxs, weights):
+        builds.append(idxs.shape[0])
+        return window_build(acc, idxs, weights)
+    t_phase = time.perf_counter()
     try:
         for mod, name, value in shrunk:
             setattr(mod, name, value)
         factorized.scatter_add_window = counted_build
         n_windows = -(-fact_rows // factorized._win_rows())
-        for scatter, gather in WINDOW_PAIRS:
-            cfg = EngineConfig(ftree_scatter=scatter, ftree_gather=gather)
-            eng = Engine(case.rels, cfg, device=dev)
-            builds.clear()
-            t0 = time.perf_counter()
-            got, launches = kernels.counted(
-                lambda: eng.run_workload([[case.query]]))
-            first_s = time.perf_counter() - t0
-            if got != case.expected:
-                raise AssertionError(f"windows {scatter}/{gather}: {got} "
-                                     f"!= closed form {case.expected}")
-            named = builds.count(scatter)
-            if named < n_windows or len(set(builds)) != 1:
-                raise AssertionError(
-                    f"windows {scatter}/{gather}: {named} window builds "
-                    f"under {scatter!r} for {n_windows} windows "
-                    f"({sorted(set(builds))})")
-            run = {"workload": "star_big_windows", "fact_rows": fact_rows,
-                   "windows": n_windows, "window_builds": named,
-                   "first_s": first_s, "launches": launches,
-                   "ftree_queries":
-                       eng.batch_executor.counters["ftree_queries"]}
-            if dev.type == "cuda":
-                run["sync_check"] = _sync_check(
-                    eng, lambda: eng.run_workload([[case.query]]))
-            runs[f"{scatter}/{gather} windows"] = run
-            del eng
+        eng = Engine(case.rels, EngineConfig(), device=dev)
+        t0 = time.perf_counter()
+        got, launches = kernels.counted(
+            lambda: eng.run_workload([[case.query]]))
+        first_s = time.perf_counter() - t0
+        if got != case.expected:
+            raise AssertionError(f"windows: {got} != closed form "
+                                 f"{case.expected}")
+        if len(builds) < n_windows:
+            raise AssertionError(f"windows: {len(builds)} window builds "
+                                 f"for {n_windows} windows")
+        run = {"workload": "star_big_windows", "fact_rows": fact_rows,
+               "windows": n_windows, "window_builds": len(builds),
+               "first_s": first_s, "launches": launches,
+               "ftree_queries": eng.batch_executor.counters["ftree_queries"],
+               "lines_equal_oracle": True}
+        if dev.type == "cuda":
+            if min(launches[k] for k in WAVE_KERNELS) == 0:
+                raise AssertionError(f"windows skipped a kernel: {launches}")
+            run["sync_check"] = _sync_check(
+                eng, lambda: eng.run_workload([[case.query]]))
+        del eng
     finally:
         factorized.scatter_add_window = window_build
         for mod, name, value in saved:
             setattr(mod, name, value)
-    return runs
+    run["seconds"] = time.perf_counter() - t_phase
+    return run
 
 
 # ---- phase 4: data scale ----
@@ -1340,11 +1253,6 @@ def phase_scale(dev, zipf_rows=ZIPF_ROWS, star_rows=STAR_ROWS,
     line["load_s"] = load_s
     lines.append(line)
     print(json.dumps(line))
-    # the same star query through the per-query executor
-    line = _per_query_run("star_per_query", *args)
-    line["batch_path_warm_s"] = lines[-1]["warm_query_s"]
-    lines.append(line)
-    print(json.dumps(line))
     # the same star through the batch path's materialized fallback: the
     # dense fused stage (defer_attach, terminal, project_defer) and the
     # sort backend's per-op path
@@ -1439,7 +1347,7 @@ def _batch_fallback_run(name, rels, q, expected, n_tuples, dev, config,
         if got != expected:
             raise AssertionError(f"{name}: {got} != oracle {expected}")
         counters = dict(eng.batch_executor.counters)
-        if counters["ftree_queries"] or eng.executor.counters["queries"]:
+        if counters["ftree_queries"]:
             raise AssertionError(f"{name}: not on the materialized "
                                  f"fallback: {counters}")
         grew = {k: kernels.LAUNCHES[k] - before[k] for k in before}
@@ -1478,49 +1386,13 @@ def _batch_fallback_run(name, rels, q, expected, n_tuples, dev, config,
     return line
 
 
-def _per_query_run(name, rels, q, expected, n_tuples, dev):
-    """One query through Engine(batch_execution=False): first run, three
-    warm runs, a profiled run; exact against `expected`."""
-    import torch
-    from radixhashjoin_tpu_torch import kernels
-    from radixhashjoin_tpu_torch.config import EngineConfig
-    from radixhashjoin_tpu_torch.models.engine import Engine
-
-    before = dict(kernels.LAUNCHES)
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    eng = Engine(rels, EngineConfig(batch_execution=False), device=dev)
-    t0 = time.perf_counter()
-    got = eng.run_workload([[q]])
-    first_s = time.perf_counter() - t0
-    if got != expected:
-        raise AssertionError(f"{name}: {got} != oracle {expected}")
-    warm = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        if eng.run_workload([[q]]) != expected:
-            raise AssertionError(f"{name}: warm rerun differs")
-        warm.append(time.perf_counter() - t0)   # ends in a readback
-    reads = eng.executor.counters["readbacks"] // 4
-    line = {"phase": "scale", "cell": name, "join_input_tuples": n_tuples,
-            "first_run_s": first_s, "warm_query_s": warm,
-            "tuples_per_s": n_tuples / float(np.median(warm)),
-            "readbacks_per_query": reads,
-            "launches": {k: kernels.LAUNCHES[k] - before[k]
-                         for k in before},
-            "exact": True}
-    if dev.type == "cuda":
-        line["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-        line["device_profile"] = _profile(lambda: eng.run_workload([[q]]))
-    return line
-
-
 def _triangle(rng, dev, n):
     """A cyclic triangle R(a, b) ⋈ S(b, c) ⋈ T(c, a) of n-row relations,
     which the factorized wave cannot plan: n planted triangles over
     values below n, half of T's rows broken so that the closing
-    predicate filters, against the port's oracle; through the per-query
-    executor and through the batch path's materialized fallback."""
+    predicate filters, against the port's oracle; through the batch
+    path's materialized fallback on the dense backend and on the sort
+    backend's per-op path."""
     from radixhashjoin_tpu_torch.oracle import OracleExecutor
     from radixhashjoin_tpu_torch.storage import Relation
     from radixhashjoin_tpu_torch.workload import parse_query
@@ -1541,15 +1413,15 @@ def _triangle(rng, dev, n):
     oracle_s = time.perf_counter() - t0
     if want is None or min(want) == 0:
         raise AssertionError(f"triangle oracle gave a degenerate {want}")
-    line = _per_query_run("triangle_per_query", rels, q,
-                          [" ".join(map(str, want))], 3 * n, dev)
-    line.update(load_s=load_s, oracle_s=oracle_s)
     from radixhashjoin_tpu_torch.config import EngineConfig
-    batch = _batch_fallback_run("triangle_batch", rels, q,
-                                [" ".join(map(str, want))], 3 * n, dev,
-                                EngineConfig())
-    batch["per_query_warm_s"] = line["warm_query_s"]
-    return [line, batch]
+    out = [_batch_fallback_run(name, rels, q, [" ".join(map(str, want))],
+                               3 * n, dev, cfg, dense)
+           for name, cfg, dense in (
+               ("triangle_batch", EngineConfig(), True),
+               ("triangle_batch_sort", EngineConfig(join_backend="sort"),
+                False))]
+    out[0].update(load_s=load_s, oracle_s=oracle_s)
+    return out
 
 
 # ---- phase 4c: the distributed layer in a world of one ----
@@ -1930,7 +1802,7 @@ def phase_bench(dev, chain_rows=CHAIN_ROWS, scale_argv=BENCH_SCALE_ARGV,
     pass, the planner's first run of each order) or by _huge_run (the
     chain's first run). On the card each dense probe, engine config, the
     chain and the twin must launch the build and lookup, and the skew join
-    the rank kernel; the planner's per-query path joins with the sort
+    the rank kernel; the planner's sort-backend runs join with the sort
     probe and launches none. The timed calls and bench_microops' timing
     loops are not counted. Returns the counted runs' launches, summed."""
     from radixhashjoin_tpu_torch import (bench, bench_microops, bench_planner,
@@ -1946,8 +1818,6 @@ def phase_bench(dev, chain_rows=CHAIN_ROWS, scale_argv=BENCH_SCALE_ARGV,
             keys = ("rank_hist",)
         elif ln["metric"].startswith("dense_probe"):
             keys = PROBE_KERNELS
-        elif ln.get("table_impl") == "xla":
-            keys = ()            # the library scatter and gather
         else:
             keys = WAVE_KERNELS
         _add_launches(ln["metric"], ln["launches"], keys, dev, total)
@@ -2226,8 +2096,8 @@ def main() -> int:
         return out
     timed, errs = timed_phase(phase_kernels, dev)
     # the select kernel counts apart from LAUNCHES: from zero over the
-    # in-process CLI and settings runs, whose stage ops and per-query
-    # executor filter through it
+    # in-process CLI and settings runs, whose per-op path and stage ops
+    # filter through it
     kernels.SELECT_LAUNCHES = 0
     launches = timed_phase(phase_cli, dev)
     timed_phase(phase_faults, dev)

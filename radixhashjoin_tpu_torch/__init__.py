@@ -13,9 +13,11 @@ and run as ONE level-batched message-passing wave (ops/factorized.py);
 the rest run as materialized stage ops of the same round (ops/stage.py)
 or, on the sort backend, through the per-op path. The build and lookup
 kernels live in csrc/tables.cu, and SUMs fold exactly in int64
-(utils/limbs.py). The per-query executor (models/executor.py), the
-radix kernels of csrc/radix.cu, the distributed layer (parallel/) and
-every table variant of the JAX package's ops/tables.py are ported too.
+(utils/limbs.py). The radix kernels of csrc/radix.cu and the
+distributed layer (parallel/) are ported too. The JAX package's
+per-query executor and its XLA table variants are not: the batch path
+answers every query, and the hand kernels beat every variant on the
+card.
 The per-op paths' filters run as one conjunctive select kernel a
 filtered slot (csrc/select.cu, ops/filter.py filter_conj).
 
@@ -26,8 +28,7 @@ its counterpart.
 Layout:
   config, storage, workload, oracle — host side: settings, relation
              files, stream parsing, the NumPy oracle and line format
-  models   — Engine facade, batch executor + host planners, per-query
-             executor, catalog
+  models   — Engine facade, batch executor + host planners, catalog
   ops      — factorized wave, fused stage runner, joins, table
              build/lookup
   utils    — padding policy, exact int64 folds

@@ -1,13 +1,13 @@
 """CLI entry: `python -m radixhashjoin_tpu_torch [--device cuda|cpu]
-[--backend auto|dense|sort] [--no-batch] [--oracle] [--reorder-joins]
-[--no-native] [--profile] [--mesh N] < init+work` — the reference
-binary's stdin contract (counterpart: radixhashjoin_tpu/__main__.py).
+[--backend auto|dense|sort] [--oracle] [--reorder-joins] [--no-native]
+[--profile] [--mesh N] < init+work` — the reference binary's stdin
+contract (counterpart: radixhashjoin_tpu/__main__.py, less its
+--no-batch: the wave-batched executor answers every query shape, and
+--backend sort gives the materializing sort join).
 
 The default device is cuda. Without a card the CLI exits non-zero; it
 runs on the CPU (the plain PyTorch versions of the kernels) only when
-asked with --device cpu. --no-batch runs every query through the
-per-query executor (models/executor.py); the default wave-batched path
-answers every query shape too. --oracle answers with the NumPy oracle,
+asked with --device cpu. --oracle answers with the NumPy oracle,
 --reorder-joins turns on the stats-driven join order, --no-native loads
 and parses in Python instead of the C++ host runtime, and --profile
 prints the batch executor's per-operator table to stderr after the run.
@@ -33,9 +33,6 @@ def cli() -> None:
                    help="device the engine runs on (default: cuda)")
     p.add_argument("--backend", choices=["auto", "dense", "sort"],
                    default="auto", help="equi-join backend")
-    p.add_argument("--no-batch", action="store_true",
-                   help="execute queries one at a time (the per-query "
-                        "executor)")
     p.add_argument("--oracle", action="store_true",
                    help="force the NumPy oracle executor")
     p.add_argument("--reorder-joins", action="store_true",
@@ -50,7 +47,6 @@ def cli() -> None:
     args = p.parse_args()
     config = EngineConfig(
         join_backend=args.backend,
-        batch_execution=not args.no_batch,
         force_oracle=args.oracle,
         enable_join_reordering=args.reorder_joins,
         use_native_runtime=not args.no_native,
@@ -70,7 +66,7 @@ def cli() -> None:
         run_cli(args.mesh, config, args.device)
         return
     engine = main(config=config, device=device)
-    if args.profile and engine.batch_executor is not None:
+    if args.profile:
         sys.stdout.flush()
         print(engine.batch_executor.profiler.report(), file=sys.stderr)
 

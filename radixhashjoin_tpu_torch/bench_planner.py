@@ -17,16 +17,18 @@ The written order joins fact with fact first (about N · N/D intermediate
 pairs); the planner (models/planner.py, the reference's estimator in
 models/stats.py) prices the filtered dimension join cheapest and hoists
 it. The factorized wave never materializes intermediates, so the order
-matters on the materialized path: both runs use factorized=False,
-batch_execution=False (the per-query executor), as the reference's do.
-The materialized join's cap of 2^31 - 1 pairs (JoinCapacityError) stays.
+matters on the materialized path: both runs use factorized=False and
+join_backend="sort" (the batch executor's per-op sort join, one query a
+call), as the reference's materializing runs do. The materialized
+join's cap of 2^31 - 1 pairs (JoinCapacityError) stays.
 
 Each run is held exact against OracleExecutor on each of WARMUP untimed
 calls (`launches_written`, `launches_reordered`: the kernel launches of
-the first, counted from 0; the per-query executor joins with the sort
-probe of ops/join.py, so the build and lookup kernels are not on this
-path); then one call is timed by the host clock (it ends in a readback). On the CPU (--device cpu) both runs are held exact on the
-plain versions and nothing is timed: the walls say "not measured".
+the first, counted from 0; the sort join probes with ops/join.py, so
+the build and lookup kernels are not on this path); then one call is
+timed by the host clock (it ends in a readback). On the CPU (--device
+cpu) both runs are held exact on the plain versions and nothing is
+timed: the walls say "not measured".
 Without a card the default device cuda exits 2. The relations come from
 np.random.default_rng(7), as the reference's.
 """
@@ -109,7 +111,7 @@ def main(argv: Optional[Sequence[str]] = None,
             "chosen_order": chosen_order(rels), "unit": "s"}
     for label, flag in (("written", False), ("reordered", True)):
         eng = Engine(rels, EngineConfig(factorized=False,
-                                        batch_execution=False,
+                                        join_backend="sort",
                                         enable_join_reordering=flag),
                      device=dev)
         for i in range(WARMUP if on_card else 1):

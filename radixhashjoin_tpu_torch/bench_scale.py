@@ -1,6 +1,6 @@
 """Data-scale join benchmarks of the port (counterpart:
 scripts/bench_scale.py): one JSON line per config, with the reference
-script's metric names, JSON keys and flags.
+script's metric names, JSON keys and flags, less two (below).
 
     python -m radixhashjoin_tpu_torch.bench_scale [--rows 26] [--skew] ...
     python -m radixhashjoin_tpu_torch.bench_scale --device cpu --rows 12 \\
@@ -58,11 +58,10 @@ On the CPU (--device cpu) every exactness check runs on the plain
 versions and nothing is timed: the lines say "not measured". Without a
 card the default device cuda exits 2.
 
---impl takes the port's table impl names ("auto", "onehot"); the
-reference's "xla" and "both" compare XLA with TPU one-hot paths the port
-does not have and exit 2. --wsort takes the reference's values, and each
-runs the port's one unsorted window pass. --skew runs a world of one
-rank in this process (NCCL on the card), or N spawned ranks with
+The reference's --impl (its table variants) and --wsort (its sorted
+windows) are not flags here: the port has one table build and lookup a
+device (ops/tables.py) and one unsorted window pass. --skew runs a world
+of one rank in this process (NCCL on the card), or N spawned ranks with
 --devices N (gloo with --device cpu).
 """
 
@@ -488,10 +487,6 @@ def main(argv: Optional[Sequence[str]] = None,
                         "on cuda, 1 on the CPU)")
     p.add_argument("--skew-rows", type=int, default=1 << 16,
                    help="rows for the skew-aware distributed config")
-    p.add_argument("--impl", default="both",
-                   help="table kernels of the small-dim star join: xla | "
-                        "auto | both (one line each), or any ftree_scatter "
-                        "/ ftree_gather name")
     p.add_argument("--zipf-engine", action="store_true",
                    help="BASELINE config 4: Zipf(1.1) join + SUM through "
                         "the engine")
@@ -503,9 +498,6 @@ def main(argv: Optional[Sequence[str]] = None,
     p.add_argument("--star-rows", type=int, default=0,
                    help="log2 fact rows for the big STAR join config "
                         "(0 = skip)")
-    p.add_argument("--wsort", default="auto", choices=["auto", "on", "off"],
-                   help="ftree_window_sort of the big engine configs; every "
-                        "value runs the port's one unsorted window pass")
     p.add_argument("--chain-rows", type=int, default=0,
                    help="log2 rows a fact for the big CHAIN config (fact1 "
                         "JOIN fact2 JOIN dim; 0 = skip). The huge-node pass "
@@ -536,20 +528,15 @@ def main(argv: Optional[Sequence[str]] = None,
                   fact_rows=n, dim_rows=NARROW_DOMAIN, domain=NARROW_DOMAIN)
         free_memory(dev)
         nf = min(n, STAR_MAX_ROWS)
-        impls = ["xla", "auto"] if args.impl == "both" else [args.impl]
-        big = star(nf, rng, N_KEYS)
-        small = star(nf, rng, SMALL_DIM_KEYS)   # one case for every impl
-        star_cfgs = [("star_join_engine_tuples_per_s", big, N_KEYS, {})] + [
-            ("star_join_smalldim_engine_tuples_per_s", small, SMALL_DIM_KEYS,
-             {"ftree_scatter": impl, "ftree_gather": impl})
-            for impl in impls]
-        del big, small
-        for metric, case, n_keys, cfg in star_cfgs:
+        star_cfgs = [
+            ("star_join_engine_tuples_per_s", star(nf, rng, N_KEYS), N_KEYS),
+            ("star_join_smalldim_engine_tuples_per_s",
+             star(nf, rng, SMALL_DIM_KEYS), SMALL_DIM_KEYS)]
+        for metric, case, n_keys in star_cfgs:
             got, seconds, counters, launches = run_engine(
-                case, EngineConfig(**cfg), dev)
-            extra = {"table_impl": cfg["ftree_scatter"]} if cfg else {}
+                case, EngineConfig(), dev)
             _emit(out, {"metric": metric, "fact_rows": nf,
-                        "dim_rows": n_keys, "n_joins": 2, **extra,
+                        "dim_rows": n_keys, "n_joins": 2,
                         "factorized": counters["ftree_queries"] > 0,
                         **_rate(nf + 2 * n_keys, seconds),
                         "sums": got[0][:60], "launches": launches,
@@ -564,12 +551,11 @@ def main(argv: Optional[Sequence[str]] = None,
         modes = (True, False) if args.zipf_rows <= 27 else (True,)
         for factorized in modes:
             got, seconds, _c, launches = run_engine(
-                case, EngineConfig(factorized=factorized,
-                                   ftree_window_sort=args.wsort), dev)
+                case, EngineConfig(factorized=factorized), dev)
             line = {"metric": "zipf_join_engine_tuples_per_s", "rows": nz,
                     "zipf_s": 1.1, "n_keys": N_KEYS,
                     "hot_key_share": float(top), "factorized": factorized,
-                    "wsort": args.wsort, "oracle_checked": True,
+                    "oracle_checked": True,
                     "cross_checked": len(modes) > 1,
                     **_rate(nz + N_KEYS, seconds), "sums": got[0][:60],
                     "launches": launches}
@@ -583,14 +569,13 @@ def main(argv: Optional[Sequence[str]] = None,
     if args.star_rows:
         ns = 1 << args.star_rows
         got, seconds, counters, launches = run_engine(
-            star_big(ns, rng), EngineConfig(ftree_window_sort=args.wsort),
-            dev)
+            star_big(ns, rng), EngineConfig(), dev)
         # one fused pass: key1 + key2 + the plane a fact row
         _emit(out, {"metric": "star_join_big_engine_tuples_per_s",
                     "rows": ns, "zipf_s": 1.1, "n_keys": N_KEYS,
                     "n_joins": 2,
                     "factorized": counters["ftree_queries"] > 0,
-                    "wsort": args.wsort, "oracle_checked": True,
+                    "oracle_checked": True,
                     **_rate(ns + 2 * N_KEYS, seconds), "sums": got[0][:80],
                     "fused_passes": 1,
                     **roofline(ns * (8 + plane_bytes(ns)), seconds, dev),
@@ -599,9 +584,9 @@ def main(argv: Optional[Sequence[str]] = None,
     if args.chain_rows:
         nc = 1 << args.chain_rows
         got, seconds, counters, launches = run_engine(
-            chain(nc, rng), EngineConfig(ftree_window_sort=args.wsort), dev)
+            chain(nc, rng), EngineConfig(), dev)
         _emit(out, {**chain_line(nc, got[0], seconds, dev,
-                                 counters["ftree_queries"] > 0, args.wsort),
+                                 counters["ftree_queries"] > 0),
                     "launches": launches})
 
     if args.skew:
@@ -620,15 +605,14 @@ def main(argv: Optional[Sequence[str]] = None,
 
 
 def chain_line(nc: int, sums: str, seconds: Optional[float],
-               dev: torch.device, factorized: bool = True,
-               wsort: str = "auto") -> dict:
+               dev: torch.device, factorized: bool = True) -> dict:
     """The chain's line. Its roofline reads three window loops: fact2's
     up-pass build (key a + key b), fact1's down pass (key + plane) and
     fact2's (keys a, b + plane)."""
     p = plane_bytes(nc)
     return {"metric": "chain_join_big_engine_tuples_per_s",
             "rows_per_fact": nc, "n_keys": N_KEYS, "n_joins": 2,
-            "factorized": factorized, "wsort": wsort,
+            "factorized": factorized,
             "oracle_checked": True, **_rate(2 * nc, seconds),
             "sums": sums[:80], "fused_passes": 3,
             **roofline(nc * (8 + (4 + p) + (8 + p)), seconds, dev),

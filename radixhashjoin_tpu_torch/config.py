@@ -1,9 +1,14 @@
 """Engine configuration of the port (counterpart: radixhashjoin_tpu/config.py).
 
-Field names and defaults are the reference's for every field its engine
-reads. The reference's knobs
-that its engine never reads (radix bits, exchange slack, dtype policy,
-limb chunking, Pallas interpret mode) are not fields here.
+Field names and defaults are the reference's for every field the port
+keeps. The reference's knobs that its engine never reads (radix bits,
+exchange slack, dtype policy, limb chunking, Pallas interpret mode) are
+not fields here, and neither are the four that chose a second path no
+workload needs: the per-query executor (the batch executor answers
+every query shape), the two message-table variant names (the tensor's
+device picks the one implementation, ops/tables.py) and the sorted
+huge-node windows (the port runs one unsorted window pass). Passing one
+of them raises TypeError, as any unknown field does.
 """
 
 from __future__ import annotations
@@ -18,32 +23,13 @@ class EngineConfig:
     min_pad: int = 1024
     pad_base: int = 2
 
-    # --- factorized message-table kernels (ops/tables.py) ---
-    # The JAX package's names, each running JAX's algorithm:
-    # "auto" / "onehot": the hand-written kernels of csrc/tables.cu on a
-    #   CUDA device, their plain PyTorch versions on the CPU;
-    # ftree_scatter "mxu": one-hot x 7-bit weight limbs (int8 matmul);
-    #   "hier": sort + blocked one-hot sub-tables + window adds (huge-node
-    #   windows take "hier_presorted" too: the same without the sort);
-    #   "sorted": carrying sort + boundary differences;
-    # any other name ("xla"): the library scatter / gather (index_add_,
-    #   index_select), as JAX falls through to XLA's engines.
-    ftree_scatter: str = "auto"
-    ftree_gather: str = "auto"
-
     # --- execution backend ---
     # "auto": the dense direct-address path when the catalog's value
     # domain fits max_dense_domain (int32 entries: 2**24 -> 64 MB table
     # on the device), else the sort join; "dense" / "sort" force one.
-    # The per-query executor (batch_execution=False) always runs the
-    # sort join, as the reference's does.
     join_backend: str = "auto"
     max_dense_domain: int = 1 << 24
 
-    # True: wave-batched execution of each batch (models/batch.py);
-    # False: one query at a time through the per-query executor
-    # (models/executor.py)
-    batch_execution: bool = True
     # dense backend: fuse each round into one stage (ops/stage.py);
     # False runs the per-op path (one stacked readback per join wave)
     fuse_stages: bool = True
@@ -60,15 +46,8 @@ class EngineConfig:
     # written-order parity
     enable_join_reordering: bool = False
 
-    # the reference's sorted windows in its huge-node passes ("auto",
-    # "on", "off", "mono"): accepted for config parity, and every value
-    # runs the port's one unsorted window pass (ops/factorized.py
-    # _fused_node_pass). Window order changes no result, and the sorted
-    # windows measured 3.0-3.5x slower on the H100 (ROADMAP.md §2).
-    ftree_window_sort: str = "auto"
-
     # the NumPy oracle (oracle.py) answers every query; the device
-    # executors still build, and nothing else routes to the oracle
+    # executor still builds, and nothing else routes to the oracle
     force_oracle: bool = False
     # every factorized query of a round runs in ONE level-batched wave;
     # False runs each as its own ("ftree", ...) stage op
@@ -113,21 +92,8 @@ class EngineConfig:
         check_config(self)
 
 
-# EngineConfig fields whose non-default values need code that is not
-# ported yet: field -> (allowed values, what it needs). Empty: the port
-# runs every setting the reference's engine reads.
-_UNPORTED: dict = {}
-
-
 def check_config(config: EngineConfig) -> None:
-    """Raise for a config the port cannot run: NotImplementedError for
-    unported code, ValueError for an unknown value."""
-    for field, (allowed, needs) in _UNPORTED.items():
-        value = getattr(config, field)
-        if value not in allowed:
-            raise NotImplementedError(
-                f"EngineConfig({field}={value!r}) needs {needs}, which is "
-                f"not ported yet (ROADMAP.md, 'Modules to port')")
+    """Raise ValueError for a value the port does not know."""
     sg = config.stage_group
     if sg is not None and (isinstance(sg, bool) or not isinstance(sg, int)
                            or sg < 1):
@@ -135,9 +101,6 @@ def check_config(config: EngineConfig) -> None:
                          f"got {sg!r}")
     if config.join_backend not in ("auto", "dense", "sort"):
         raise ValueError(f"unknown join_backend {config.join_backend!r}")
-    if config.ftree_window_sort not in ("auto", "on", "off", "mono"):
-        raise ValueError(f"unknown ftree_window_sort "
-                         f"{config.ftree_window_sort!r}")
 
 
 DEFAULT = EngineConfig()

@@ -42,8 +42,9 @@ filter.passes and filter.predicates), join.probe / join.expand /
 join.match and aggregate, with the sort join's padded and live right
 rows that it sorts (join.sorted_rows, join.live_rows) and the padded
 left lanes that it binary-searches (join.searched_rows).
-There is no route to the oracle, to the per-query executor or to the
-CPU.
+It answers every query shape, so it is the port's one materializing
+executor: Engine.execute runs a query as a batch of one. There is no
+route to the oracle or to the CPU.
 """
 
 from __future__ import annotations
@@ -1275,8 +1276,7 @@ class BatchExecutor:
                       tuple(ic_in), tuple(probes_in), tuple(cols),
                       tuple(vals), tuple(plan), self.catalog.domain,
                       tuple(keep_slots), tuple(keep_mats),
-                      tuple(keep_probes), self.config.ftree_scatter,
-                      self.config.ftree_gather),
+                      tuple(keep_probes)),
             tuple(live_in) + tuple(mats_in))
         vid = len(vecs)
         vecs.append(packed)

@@ -1,17 +1,14 @@
-"""Engine facade: catalog + executors + workload runner (counterpart:
+"""Engine facade: catalog + executor + workload runner (counterpart:
 radixhashjoin_tpu/models/engine.py:26-157).
 
 Relations load once (storage.py), every query runs on the device the
 caller names, and results print in input order with the reference
-binary's stdin/stdout contract. Two executors share one DeviceCatalog:
-
-* batch_execution=True (the default): the wave-batched BatchExecutor
-  (models/batch.py), which answers every query shape in the same batch:
-  a factorized wave for tree-shaped queries, materialized stage ops for
-  the rest;
-* batch_execution=False: the per-query TorchExecutor
-  (models/executor.py), the materializing sort join one query at a
-  time.
+binary's stdin/stdout contract. One executor answers every query: the
+wave-batched BatchExecutor (models/batch.py), over its DeviceCatalog,
+which runs every query shape in the same batch: a factorized wave for
+tree-shaped queries, materialized stage ops for the rest (with
+join_backend="sort", the per-op sort join). `execute(q)` is a batch of
+one.
 
 With mesh_devices=N the engine is one rank of an N-rank run
 (parallel/): its catalog is row-sharded and every query runs through
@@ -41,8 +38,7 @@ from ..oracle import OracleExecutor, format_result
 from ..storage import Relation, load_relation
 from ..workload import Query, parse_init_stream, parse_work_stream
 from .batch import BatchExecutor
-from .device_catalog import DeviceCatalog, resolve_device
-from .executor import TorchExecutor
+from .device_catalog import resolve_device
 from .planner import reorder_joins
 
 
@@ -67,18 +63,11 @@ class Engine:
                 self.relations, config, mesh=mesh,
                 n_devices=config.mesh_devices)
             self.device = self.dist_executor.device
-            self.batch_executor = self.executor = None
+            self.batch_executor = None
             return
         self.device = resolve_device("cuda" if device is None else device)
-        if config.batch_execution:
-            self.batch_executor = BatchExecutor(self.relations, config,
-                                                device=self.device)
-            catalog = self.batch_executor.catalog
-        else:
-            self.batch_executor = None
-            catalog = DeviceCatalog(self.relations, config,
-                                    device=self.device)
-        self.executor = TorchExecutor(self.relations, catalog=catalog)
+        self.batch_executor = BatchExecutor(self.relations, config,
+                                            device=self.device)
 
     @classmethod
     def from_paths(cls, paths: Sequence[str],
@@ -95,15 +84,15 @@ class Engine:
                    mesh=mesh)
 
     def execute(self, q: Query) -> Optional[List[int]]:
-        """One query through the per-query executor (or the distributed
-        one, or the oracle under force_oracle): projection sums, or None
-        for a NULL line."""
+        """One query by the route of run_batch_raw (the oracle under
+        force_oracle, the distributed executor under a mesh, else a
+        batch of one): projection sums, or None for a NULL line."""
         q = self._plan(q)
         if self.config.force_oracle:
             return self._oracle.execute(q)
         if self.dist_executor is not None:
             return self.dist_executor.execute(q)
-        return self.executor.execute(q)
+        return self.batch_executor.run_batch([q])[0]
 
     def _plan(self, q: Query) -> Query:
         """Stats-driven join reordering (models/planner.py); off by
@@ -118,12 +107,10 @@ class Engine:
         force_oracle): per-query sums (None = NULL line), unformatted."""
         if self.config.force_oracle:
             return [self.execute(q) for q in batch]
-        if self.dist_executor is not None and self.config.batch_execution:
-            return self.dist_executor.run_batch_raw(
-                [self._plan(q) for q in batch])
-        if self.batch_executor is None:
-            return [self.execute(q) for q in batch]
-        return self.batch_executor.run_batch([self._plan(q) for q in batch])
+        planned = [self._plan(q) for q in batch]
+        if self.dist_executor is not None:
+            return self.dist_executor.run_batch_raw(planned)
+        return self.batch_executor.run_batch(planned)
 
     def run_batch(self, batch: Sequence[Query]) -> List[str]:
         out = self.run_batch_raw(batch)
@@ -151,7 +138,7 @@ def main(stdin: TextIO = None, stdout: TextIO = None,
     (`F`-terminated), then one result line per query in input order.
     The work stream parses and the lines format through the C++ host
     runtime unless config.use_native_runtime is False.
-    Returns the engine (its executors' counters describe the run)."""
+    Returns the engine (its executor's counters describe the run)."""
     dev = resolve_device(device)
     native = config.use_native_runtime
     if native:

@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.limbs import U64_MASK
 from .filter import gather_clamped
 
 
@@ -30,9 +29,3 @@ def gather_partials_matrix(col: torch.Tensor, mat: torch.Tensor,
     """_gather_partials with the rows taken from an intermediate-matrix
     row (the wave-batched path's non-terminal projection)."""
     return _gather_partials(col, mat[row_idx], count)
-
-
-def sum_column_over_rows(col: torch.Tensor, rows: torch.Tensor, count
-                         ) -> int:
-    """Exact u64 sum of col[rows[:count]] (device reduce, one readback)."""
-    return int(_gather_partials(col, rows, count)) & U64_MASK

@@ -369,7 +369,7 @@ def _lazy_any_positive(lz: _Lazy, mask) -> torch.Tensor:
     return acc
 
 
-def _scatter_add_big(width, key, off, weight, mask, sent, impl="auto"):
+def _scatter_add_big(width, key, off, weight, mask, sent):
     """zeros(width)[key + off (masked -> sent)] += weight for a HUGE key
     vector, window by window into one running table (scatter_add_window),
     so that the masked-key and weight temps stay window-sized. weight:
@@ -391,11 +391,11 @@ def _scatter_add_big(width, key, off, weight, mask, sent, impl="auto"):
             m = mask[start:start + size]
             k = torch.where(m, k, sent)
             w = torch.where(m, w, 0)
-        scatter_add_window(acc, k, w, impl)
+        scatter_add_window(acc, k, w)
     return acc
 
 
-def _fused_node_pass(n, scatters, folds, flag_idx, impl="auto"):
+def _fused_node_pass(n, scatters, folds, flag_idx):
     """ONE window loop over a huge node serving every consumer at once:
     message-table builds (each into its own running table), exact
     projection folds, and the root NULL flag. Each window evaluates
@@ -413,7 +413,7 @@ def _fused_node_pass(n, scatters, folds, flag_idx, impl="auto"):
     Returns ([A_i int32 tables], [fold_i 0-d int64 sums], anyp or None).
     The windows are disjoint, the last one short, and unsorted: the
     reference's sorted windows (its wsort) reorder rows inside a window,
-    which no consumer here can see (config.py ftree_window_sort)."""
+    which no consumer here can see."""
     _win_guard(n)
     device = (scatters[0][1] if scatters else folds[0][0]).device
     acc_a = [torch.zeros(s[0], dtype=torch.int32, device=device)
@@ -440,7 +440,7 @@ def _fused_node_pass(n, scatters, folds, flag_idx, impl="auto"):
                 mk = mask[start:end]
                 k = torch.where(mk, k, sent)
                 w = torch.where(mk, w, 0)
-            scatter_add_window(acc, k, w, impl)
+            scatter_add_window(acc, k, w)
         for fi, (plane, lz) in enumerate(folds):
             c = lz.window(start, size, cache)
             if fi == flag_idx:
@@ -460,8 +460,7 @@ def _masked_scatter_operands(key, off, w, mm, sent):
             _ones(key.shape[0], key.device) if w is None else w)
 
 
-def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto",
-                   mesh=None, valid=None):
+def run_ftree_wave(wspecs, cols, vals, mesh=None, valid=None):
     """Execute MANY factorized trees in one level-batched wave.
 
     wspecs: tuple of (spec, n_cols, n_vals); cols/vals hold every spec's
@@ -517,7 +516,7 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto",
                 idxs.append(i_)
                 ws.append(w_)
             parts.append(_all_reduce(scatter_table(
-                _concat(idxs), _concat(ws), t_sc, scatter), mesh))
+                _concat(idxs), _concat(ws), t_sc), mesh))
         # huge-CHILD edges group by (tree, child): one fused window pass
         # per node serves every edge's build
         up_groups: dict = {}
@@ -531,7 +530,7 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto",
                 w = t.edges[ei][4]
                 scats.append((w, t.ckey[ei], 0, t.beta[c], t.msg_mask[c], w))
             b_list, _f, _a = _fused_node_pass(
-                t.ckey[eis[0]].shape[0], scats, [], None, impl=scatter)
+                t.ckey[eis[0]].shape[0], scats, [], None)
             for ei, bb in zip(eis, b_list):
                 up_part[(id(t), ei)] = _all_reduce(bb, mesh)
         parts.extend(up_part[(id(t), ei)] for (t, ei) in bg)
@@ -549,7 +548,7 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto",
                 continue
             gks.append(t.pkey[ei] + off)
             meta.append((t, ei, t.pkey[ei].shape[0]))
-        g = table_gather(mega, _concat(gks), gather) if gks else None
+        g = table_gather(mega, _concat(gks)) if gks else None
         o = 0
         for (t, ei, n) in meta:
             cv = g[o:o + n]
@@ -601,7 +600,7 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto",
                 idxs.append(i_)
                 ws.append(w_)
             parts.append(_all_reduce(scatter_table(
-                _concat(idxs), _concat(ws), t_sm, scatter), mesh))
+                _concat(idxs), _concat(ws), t_sm), mesh))
         # huge-parent edges: ONE fused window pass per (tree, parent)
         # builds all of the node's A slices, folds its projections and
         # emits its NULL flag, sharing every per-window lookup
@@ -630,7 +629,7 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto",
                 folds.append((plane, m_.with_mask(t.msg_mask[i])))
                 fold_pi.append(pi)
             a_list, fold_list, anyp = _fused_node_pass(
-                n_node, scats, folds, flag_idx, impl=scatter)
+                n_node, scats, folds, flag_idx)
             for ei, ah in zip(eis, a_list):
                 part_of[(id(t), ei)] = _all_reduce(ah, mesh)
             for pi, f in zip(fold_pi, fold_list):
@@ -648,7 +647,7 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto",
                 continue
             gks.append(t.ckey[ei] + off)
             meta.append((t, ei, t.ckey[ei].shape[0]))
-        g = table_gather(A, _concat(gks), gather) if gks else None
+        g = table_gather(A, _concat(gks)) if gks else None
         o = 0
         for (t, ei, n) in meta:
             t.alpha[t.edges[ei][1]] = g[o:o + n]
@@ -793,10 +792,10 @@ def run_ftree_wave(wspecs, cols, vals, scatter="auto", gather="auto",
     return _finish(hits, fold_segments(outs, device), mesh)
 
 
-def run_ftree(spec, cols, vals, scatter="auto", gather="auto"):
+def run_ftree(spec, cols, vals):
     """Execute one factorized tree: a single-spec wave (counterpart:
     radixhashjoin_tpu/ops/factorized.py:1331 run_ftree). Returns (flags,
     sums) as run_ftree_wave does for that one spec: the flag_nodes flags
     then the M/trailing flag, and one int64 SUM per projection plane."""
     return run_ftree_wave(((spec, len(cols), len(vals)),), tuple(cols),
-                          tuple(vals), scatter=scatter, gather=gather)
+                          tuple(vals))

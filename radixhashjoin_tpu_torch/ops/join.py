@@ -1,7 +1,7 @@
 """Equi-join as sort + binary search + expansion (counterpart:
 radixhashjoin_tpu/ops/join.py:30-139).
 
-The per-query executor's join (models/executor.py): a stable sort of
+The sort backend's join (models/batch.py's per-op path): a stable sort of
 the right side and two binary searches of every left value into it give
 each left value its first match in the sorted right side and its match
 count; the host reads the exact pair total back, picks a padded output

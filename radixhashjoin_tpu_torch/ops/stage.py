@@ -101,8 +101,7 @@ def part_shape(kind) -> int:
 
 
 def run_stage(live_rows, live_cnt, mats, icounts, probes, cols, vals, plan,
-              domain: int, keep_slots=(), keep_mats=(), keep_probes=(),
-              ftree_scatter="auto", ftree_gather="auto"):
+              domain: int, keep_slots=(), keep_mats=(), keep_probes=()):
     """Execute one fused stage for a round of queries.
 
     Returns (packed, kept live_rows, kept live_cnt, kept mats, kept
@@ -284,9 +283,7 @@ def run_stage(live_rows, live_cnt, mats, icounts, probes, cols, vals, plan,
             # per projection plane
             _, spec, n_cols, n_vals = op
             fflags, sums = run_ftree(spec, cols[ci:ci + n_cols],
-                                     vals[vi:vi + n_vals],
-                                     scatter=ftree_scatter,
-                                     gather=ftree_gather)
+                                     vals[vi:vi + n_vals])
             ci += n_cols
             vi += n_vals
             flags.extend(fflags)
@@ -296,9 +293,7 @@ def run_stage(live_rows, live_cnt, mats, icounts, probes, cols, vals, plan,
             # and sums arrive in per-query order
             _, wspecs, n_cols, n_vals = op
             fflags, sums = run_ftree_wave(wspecs, cols[ci:ci + n_cols],
-                                          vals[vi:vi + n_vals],
-                                          scatter=ftree_scatter,
-                                          gather=ftree_gather)
+                                          vals[vi:vi + n_vals])
             ci += n_cols
             vi += n_vals
             flags.extend(fflags)

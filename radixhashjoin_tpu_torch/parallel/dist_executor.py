@@ -132,9 +132,7 @@ class DistExecutor:
             cols.extend(fcols)
             vals.extend(fvals)
         flags, sums = d_ftree(self.mesh, tuple(wspecs), tuple(node_rows),
-                              tuple(node_caps), tuple(cols), tuple(vals),
-                              self.config.ftree_scatter,
-                              self.config.ftree_gather)
+                              tuple(node_caps), tuple(cols), tuple(vals))
         host = self._read(torch.cat(
             [torch.stack(flags).to(torch.int64) if flags
              else sums.new_zeros(0), sums]))

@@ -489,8 +489,7 @@ def d_project(mesh: Mesh, row: int, plane, mat, icnt, gchunks: int = 1,
     return fold_window(torch.where(live, gv, 0), live), ovf
 
 
-def d_ftree(mesh: Mesh, wspecs, node_rows, node_caps, cols, vals,
-            scatter: str = "auto", gather: str = "auto"
+def d_ftree(mesh: Mesh, wspecs, node_rows, node_caps, cols, vals
             ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Whole factorized queries over the row-sharded catalog
     (ops/factorized.py run_ftree_wave with a mesh): node columns arrive as
@@ -506,5 +505,4 @@ def d_ftree(mesh: Mesh, wspecs, node_rows, node_caps, cols, vals,
             gid = mesh.rank * caps[i] + _iota(caps[i], mesh.device)
             return gid < rows[i]
         valid.append(valid_rows)
-    return run_ftree_wave(wspecs, cols, vals, scatter, gather, mesh=mesh,
-                          valid=valid)
+    return run_ftree_wave(wspecs, cols, vals, mesh=mesh, valid=valid)

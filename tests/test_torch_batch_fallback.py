@@ -457,7 +457,6 @@ def _agree(rels, queries, kw, configs=None):
     assert got == want
     assert jax_lines == want
     assert eng.batch_executor.counters == ref.counters
-    assert eng.executor.counters["queries"] == 0
     return got, eng.batch_executor.counters
 
 

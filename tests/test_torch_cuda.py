@@ -2,10 +2,10 @@
 their plain PyTorch versions, the partition and radix sort against
 torch.sort(stable=True), the sort join's probe on the card against the
 CPU, the engine on a CUDA device against the port's
-oracle, the per-query executor and the wave-batched materialized
-fallback (terminal joins, the dense pair-set test, deferred attaches,
-every query shape through the batch path) on CUDA against their CPU
-runs, the engine settings (stage_group, ftree_wave=False,
+oracle, the sort backend one query a call and the wave-batched
+materialized fallback (terminal joins, the dense pair-set test,
+deferred attaches, every query shape through the batch path) on CUDA
+against their CPU runs, the engine settings (stage_group, ftree_wave=False,
 defer_middle=False) against one round, the profiler's shares,
 bench_scale's two-deep huge chain at shrunken thresholds against its
 closed form, and bench_scale's CLI with every config's exactness run on
@@ -105,33 +105,43 @@ def test_gather2_kernel_exact(dev, n_bins):
             kernels.table_gather2_cuda(bad, base)
 
 
-@pytest.mark.parametrize("impl", ["mxu", "hier", "sorted", "xla",
-                                  "hier_presorted", "onehot"])
-def test_table_variants_on_cuda_match_plain(dev, impl):
-    """The JAX package's table variants on CUDA tensors (torch._int_mm,
-    float32 bmm, sort, searchsorted) against the plain versions, with
-    the one-hot chunks small enough to take several."""
+@pytest.mark.parametrize("entry", [
+    "scatter_table", "scatter_add_window", "scatter_add_window_sorted",
+    "table_gather", "table_gather_sorted", "table_gather2"])
+def test_table_variants_on_cuda_match_plain(dev, entry):
+    """ops/tables.py's one dispatch on CUDA tensors (the hand kernels:
+    the device decides, no table name) against the plain versions on the
+    same inputs, unsorted and sorted, out-of-range keys included (the
+    test's name is from when JAX's table variants ran here)."""
     from radixhashjoin_tpu_torch.ops import tables
-    g = torch.Generator(device=dev).manual_seed(len(impl))
+    g = torch.Generator(device=dev).manual_seed(len(entry))
     n, bins = (1 << 16) + 5, 3000
     idx = torch.randint(-3, bins + 3, (n,), generator=g, device=dev,
                         dtype=torch.int32)
     w = torch.randint(0, 1000, (n,), generator=g, device=dev,
                       dtype=torch.int32)
-    want = weighted_bincount_torch(idx, w, bins)
-    if impl == "hier_presorted":
+    if entry.endswith("_sorted"):
         idx = torch.sort(idx).values
-        want = weighted_bincount_torch(idx, w, bins)
-    acc = torch.zeros(bins, dtype=torch.int32, device=dev)
-    got = tables.scatter_add_window(acc, idx, w, impl)
-    assert torch.equal(got, want)
     table = torch.randint(-2**31, 2**31 - 1, (bins,), generator=g,
                           device=dev, dtype=torch.int32)
-    sk = torch.sort(idx).values
-    for fn in (tables.table_gather_onehot, tables.table_gather_hier,
-               tables.table_gather_diffcum, tables.table_gather_xla):
-        assert torch.equal(fn(table, sk), table_gather_torch(table, sk))
-    assert torch.equal(tables.weighted_bincount_mxu(idx, w, bins), want)
+    if entry == "scatter_table":
+        assert torch.equal(tables.scatter_table(idx, w, bins),
+                           weighted_bincount_torch(idx, w, bins))
+    elif entry.startswith("scatter_add_window"):
+        acc = torch.randint(0, 1 << 20, (bins,), generator=g, device=dev,
+                            dtype=torch.int32)
+        want = acc + weighted_bincount_torch(idx, w, bins)
+        got = tables.scatter_add_window(acc, idx, w)
+        assert got is acc and torch.equal(got, want)
+    elif entry.startswith("table_gather") and entry != "table_gather2":
+        assert torch.equal(tables.table_gather(table, idx),
+                           table_gather_torch(table, idx))
+    else:
+        tb = torch.randint(-2**31, 2**31 - 1, (bins,), generator=g,
+                           device=dev, dtype=torch.int32)
+        got = tables.table_gather2(table, tb, idx)
+        want = (table_gather_torch(table, idx), table_gather_torch(tb, idx))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 # ---- adversarial shapes of the build and lookup (csrc/tables.cu) ----
@@ -505,12 +515,20 @@ def _general_queries(rng, rels, n_queries=10):
 
 @pytest.mark.parametrize("seed", range(3))
 def test_per_query_executor_cuda_matches_cpu(dev, seed):
+    """The sort backend one query a call (Engine.execute, which replaced
+    the per-query executor) on the card: the CPU's lines and the
+    oracle's."""
     rng = np.random.default_rng(300 + seed)
     rels, _ = _tree_workload(rng)
     rels, queries = _general_queries(rng, rels)
-    cfg = EngineConfig(batch_execution=False)
-    got = Engine(rels, cfg, device=dev).run_batch(queries)
-    assert got == Engine(rels, cfg, device="cpu").run_batch(queries)
+    cfg = EngineConfig(join_backend="sort")
+
+    def lines(device):
+        eng = Engine(rels, cfg, device=device)
+        return [format_result(eng.execute(q), len(q.projections))
+                for q in queries]
+    got = lines(dev)
+    assert got == lines("cpu")
     oracle = OracleExecutor(rels)
     assert got == [format_result(oracle.execute(q), len(q.projections))
                    for q in queries]
@@ -625,8 +643,7 @@ def test_defer_attach_cuda_matches_cpu(dev, src):
                                  {"fuse_stages": False}])
 def test_batch_fallback_cuda_matches_cpu(dev, cfg):
     """Every query shape through the batch path on the card: the same
-    lines as on the CPU and as the oracle, no query on the per-query
-    executor."""
+    lines as on the CPU and as the oracle."""
     rng = np.random.default_rng(400)
     rels, _ = _tree_workload(rng)
     rels, queries = _general_queries(rng, rels, n_queries=16)
@@ -637,7 +654,6 @@ def test_batch_fallback_cuda_matches_cpu(dev, cfg):
     oracle = OracleExecutor(rels)
     assert got == [format_result(oracle.execute(q), len(q.projections))
                    for q in queries]
-    assert eng.executor.counters["queries"] == 0
 
 
 @pytest.mark.parametrize("cfg", [{"stage_group": 8}, {"stage_group": 1},
@@ -858,9 +874,8 @@ def test_bench_scale_lines_launch_the_kernels(dev):
     """bench_scale's CLI at 2^16 rows on the card, every config: each line
     exact (the dense probes element by element) and timed, each dense
     probe's exactness run launching the build and the fused double
-    lookup, each engine config's the build and the lookup (but the
-    small-dimension star's xla line: the library calls), the skew join's
-    the rank kernel."""
+    lookup, each engine config's the build and the lookup, the skew
+    join's the rank kernel."""
     import io
     import json
 
@@ -871,15 +886,13 @@ def test_bench_scale_lines_launch_the_kernels(dev):
                              "--skew", "--skew-rows", "65536", "--devices",
                              "1"], out) == 0
     lines = [json.loads(ln) for ln in out.getvalue().splitlines()]
-    assert len(lines) == 11
+    assert len(lines) == 10
     for ln in lines:
         assert ln["exact"] is True and isinstance(ln["value"], float), ln
         if ln["metric"].startswith("skewaware"):
             keys = ("rank_hist",)
         elif ln["metric"].startswith("dense_probe"):
             keys = ("bincount", "gather2")
-        elif ln.get("table_impl") == "xla":
-            keys = ()
         else:
             keys = ("bincount", "gather")
         assert all(ln["launches"][k] > 0 for k in keys), ln

@@ -13,9 +13,13 @@ fallback answers inside the batch path (tests/test_torch_batch_fallback.py
 holds its operators and configs against JAX), the CLI as a subprocess,
 the port's independence from jax, and the settings that raised until
 they were ported (tests/test_torch_settings.py covers those in full; the
-per-query path has its own file, tests/test_torch_executor.py).
+sort backend one query a call, against JAX's per-query executor, has its
+own file, tests/test_torch_executor.py), and the settings the port
+retired: JAX's table and window names, each of which JAX runs to the
+lines of the port's one table build and window pass.
 """
 
+import dataclasses
 import inspect
 import os
 import subprocess
@@ -229,7 +233,7 @@ def test_wave_grouping_agrees():
 def test_non_factorizable_query_raises(ci):
     """A CASE3 query the tree planner leaves to the materialized fallback
     runs in the batch path itself (nothing raises any more): port == JAX
-    == oracle, no factorized query, no per-query executor."""
+    == oracle, no factorized query."""
     rels, q, _ = CASE3[ci]
     prels, (pq,) = _to_port(rels, [q])
     eng = Engine(prels, EngineConfig(), device="cpu")
@@ -240,7 +244,6 @@ def test_non_factorizable_query_raises(ci):
             for r in ref.run_batch([q])] == [want]
     assert eng.batch_executor.counters == ref.counters
     assert eng.batch_executor.counters["ftree_queries"] == 0
-    assert eng.executor.counters["queries"] == 0
 
 
 def test_no_join_query_raises():
@@ -260,15 +263,14 @@ def test_no_join_query_raises():
     assert want == ["0", "NULL", "0"]       # a never-joined slot sums 0
     assert eng.run_batch(pqueries) == want
     assert eng.batch_executor.counters["readbacks"] == 1
-    assert eng.executor.counters["queries"] == 0
 
 
-def _huge_agree(monkeypatch, config):
+def _huge_agree(monkeypatch, config, **jax_names):
     """A 1500-row relation past a shrunken _BIG_WAVE_ROWS (1024, both
     packages: the reference's window folds need 1024 rows) through the
     windowed huge-node pass: the port's Engine under `config` equals the
-    JAX engine (under the same window and table settings) and the
-    oracle."""
+    oracle and the JAX engine under `jax_names` (its window and table
+    settings, which the port does not have)."""
     from radixhashjoin_tpu.ops import factorized as jax_factorized
     from radixhashjoin_tpu_torch.ops import factorized
     for mod in (factorized, jax_factorized):
@@ -288,9 +290,7 @@ def _huge_agree(monkeypatch, config):
             for q in queries]
     assert want[1] == "NULL"
     assert eng.run_batch(pqueries) == want
-    ref = JaxBatch(rels, JaxConfig(ftree_window_sort=config.ftree_window_sort,
-                                   ftree_scatter=config.ftree_scatter,
-                                   ftree_gather=config.ftree_gather))
+    ref = JaxBatch(rels, JaxConfig(**jax_names))
     assert [format_result(r, len(q.projections))
             for r, q in zip(ref.run_batch(queries), queries)] == want
     assert eng.batch_executor.counters["ftree_queries"] == 2
@@ -310,12 +310,13 @@ def test_huge_node_raises(monkeypatch):
 def test_unported_config_raises(field, value, monkeypatch):
     """Settings that raised until they were ported now run, and give the
     JAX package's lines under the same setting and the oracle's (the name
-    is from when they raised); the table settings also through the
-    huge-node windows."""
+    is from when they raised). The port has no table or window names: it
+    runs its default, which gives the lines of JAX under each name, also
+    through the huge-node windows."""
     if field == "ftree_window_sort":
-        # accepted: the port's one unsorted window pass gives the lines
-        # of the reference's sorted windows on a huge node
-        _huge_agree(monkeypatch, EngineConfig(**{field: value}))
+        # the port's one unsorted window pass gives the lines of the
+        # reference's sorted windows on a huge node
+        _huge_agree(monkeypatch, EngineConfig(), **{field: value})
         return
     if field == "mesh_devices":
         # ported: a distributed engine needs the world it names, and with
@@ -325,7 +326,7 @@ def test_unported_config_raises(field, value, monkeypatch):
             _port_engine([_u64([1, 2])], EngineConfig(**{field: value}))
         return
     if field in ("ftree_scatter", "ftree_gather"):
-        _huge_agree(monkeypatch, EngineConfig(**{field: value}))
+        _huge_agree(monkeypatch, EngineConfig(), **{field: value})
         _table_impls_agree(**{field: value})
         return
     # ported (tests/test_torch_settings.py covers each setting in full):
@@ -349,15 +350,15 @@ def test_unported_config_raises(field, value, monkeypatch):
 
 
 def _table_impls_agree(ftree_scatter="auto", ftree_gather="auto"):
-    """_shapes() and _fuzz(0) under one ftree_scatter / ftree_gather pair:
-    the port's lines equal the JAX engine's under the same names and the
-    oracle's, with equal counters."""
-    cfg = {"ftree_scatter": ftree_scatter, "ftree_gather": ftree_gather}
+    """_shapes() and _fuzz(0): the port's default lines equal the oracle's
+    and the JAX engine's under one ftree_scatter / ftree_gather pair of
+    JAX's table names, with equal counters."""
     rels, queries = _merge(_shapes() + [_fuzz(0)])
     prels, pqueries = _to_port(rels, queries)
-    eng = Engine(prels, EngineConfig(**cfg), device="cpu")
+    eng = Engine(prels, EngineConfig(), device="cpu")
     got = eng.run_batch(pqueries)
-    ref = JaxBatch(rels, JaxConfig(**cfg))
+    ref = JaxBatch(rels, JaxConfig(ftree_scatter=ftree_scatter,
+                                   ftree_gather=ftree_gather))
     oracle = OracleExecutor(rels)
     want = [format_result(oracle.execute(q), len(q.projections))
             for q in queries]
@@ -385,10 +386,10 @@ def test_table_impls_match_jax_and_oracle(scatter, gather):
 @pytest.mark.parametrize("scatter", ["hier", "hier_presorted", "sorted",
                                      "xla"])
 def test_table_impls_huge_windows(scatter, monkeypatch):
-    """The window builds of the huge-node pass under each build name
-    (scatter_add_window; "mxu" in test_unported_config_raises), against
-    JAX's engine under the same name."""
-    _huge_agree(monkeypatch, EngineConfig(ftree_scatter=scatter))
+    """The port's window builds of the huge-node pass against JAX's
+    engine under each of its build names (its scatter_add_window; "mxu"
+    in test_unported_config_raises)."""
+    _huge_agree(monkeypatch, EngineConfig(), ftree_scatter=scatter)
 
 
 @pytest.mark.parametrize("field,value", [
@@ -422,15 +423,21 @@ def test_lifted_config_runs(field, value):
         assert eng.batch_executor.join.kind == "sort"
 
 
-def test_batch_execution_false_runs():
-    """batch_execution=False is ported: every query goes through the
-    per-query executor (tests/test_torch_executor.py)."""
-    eng = _port_engine([_u64([1, 2, 2])],
-                       EngineConfig(batch_execution=False))
-    assert eng.batch_executor is None
-    q = tworkload.parse_query("0 0|0.0=1.0|0.0")
-    assert eng.run_batch([q]) == ["9"]
-    assert eng.executor.counters["queries"] == 1
+@pytest.mark.parametrize("field,value", [
+    ("batch_execution", False), ("ftree_scatter", "auto"),
+    ("ftree_gather", "auto"), ("ftree_window_sort", "auto"),
+])
+def test_retired_config_fields_raise(field, value):
+    """The settings that chose a second path (the per-query executor, the
+    table variants, the sorted windows) are not fields: passing one, even
+    at JAX's default, raises TypeError, and the engine has no per-query
+    executor."""
+    assert field in {f.name for f in dataclasses.fields(JaxConfig)}
+    with pytest.raises(TypeError, match=field):
+        EngineConfig(**{field: value})
+    eng = _port_engine([_u64([1, 2, 2])], EngineConfig())
+    assert not hasattr(eng, "executor")
+    assert eng.execute(tworkload.parse_query("0 0|0.0=1.0|0.0")) == [9]
 
 
 # ---- CLI and process-level checks ----
@@ -478,7 +485,7 @@ def test_port_never_imports_jax():
         "eng = Engine([r, r], EngineConfig(), device='cpu')\n"
         "q = parse_query('0 1|0.0=1.0|0.0')\n"
         "assert eng.run_batch([q]) == ['9'], eng.run_batch([q])\n"
-        "eng = Engine([r, r], EngineConfig(batch_execution=False), "
+        "eng = Engine([r, r], EngineConfig(join_backend='sort'), "
         "device='cpu')\n"
         "assert eng.run_batch([q]) == ['9'], eng.run_batch([q])\n"
         "import radixhashjoin_tpu_torch.__main__, radixhashjoin_tpu_torch."
@@ -495,6 +502,18 @@ def test_port_never_imports_jax():
                           text=True, cwd=REPO, timeout=240)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_cli_refuses_no_batch(tmp_path):
+    """The CLI has no --no-batch (the per-query executor is retired;
+    --backend sort gives the materializing sort join): argparse exits 2
+    and nothing is printed."""
+    paths = _write_catalog(tmp_path, [_u64([1, 2])])
+    proc = _run_cli(["--device", "cpu", "--no-batch"],
+                    "\n".join(paths + ["Done", "0 0|0.0=1.0|0.0", "F"]))
+    assert proc.returncode == 2
+    assert "unrecognized arguments: --no-batch" in proc.stderr
+    assert proc.stdout == ""
 
 
 def test_cli_without_cuda_exits_nonzero(tmp_path):

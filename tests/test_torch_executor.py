@@ -1,6 +1,7 @@
-"""The per-query path of the PyTorch port (TorchExecutor, Engine with
-batch_execution=False, `python -m radixhashjoin_tpu_torch --no-batch`)
-against the JAX package's JaxExecutor and the NumPy oracle, on the CPU.
+"""The port's materializing sort join one query a call (Engine.execute
+under join_backend="sort": the batch executor's per-op path on a batch
+of one; `python -m radixhashjoin_tpu_torch --backend sort`) against the
+JAX package's per-query JaxExecutor and the NumPy oracle, on the CPU.
 
 Result lines must be identical in all three. Covers the generators of
 tests/test_fuzz.py, every case of tests/test_case3_rewrite.py (those the
@@ -8,7 +9,7 @@ wave-batched path plans and those it does not), cyclic, same-slot and
 no-join queries, NULL lines, wide u64 values (dictionary codes), a
 catalog whose domain exceeds max_dense_domain, and the 2**31 - 1 pair
 cap. The default batch path answers the same queries with its own
-materialized fallback, and the two paths agree.
+materialized fallback, and the two backends agree.
 """
 
 import os
@@ -28,7 +29,6 @@ from radixhashjoin_tpu.workload import (FilterPred, JoinPred, Projection,
                                         Query)
 from radixhashjoin_tpu_torch.config import EngineConfig
 from radixhashjoin_tpu_torch.models.engine import Engine
-from radixhashjoin_tpu_torch.models.executor import TorchExecutor
 from radixhashjoin_tpu_torch.ops.join import JoinCapacityError
 
 from test_fuzz import _random_catalog, _random_query
@@ -38,7 +38,7 @@ from test_torch_engine import (CASE3, _line, _merge, _to_port, _u64,
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PER_QUERY = EngineConfig(batch_execution=False)
+PER_QUERY = EngineConfig(join_backend="sort")
 
 
 def _oracle_lines(rels, queries):
@@ -48,18 +48,20 @@ def _oracle_lines(rels, queries):
 
 
 def _agree(rels, queries, config=PER_QUERY):
-    """Port per-query == JaxExecutor == oracle, line for line."""
+    """Port, one query a call on the sort backend == JaxExecutor ==
+    oracle, line for line."""
     prels, pqueries = _to_port(rels, queries)
     eng = Engine(prels, config, device="cpu")
-    assert eng.batch_executor is None
-    got = eng.run_batch(pqueries)
+    assert eng.batch_executor.join.kind == "sort"
+    got = [format_result(eng.execute(q), len(q.projections))
+           for q in pqueries]
     jax_ex = JaxExecutor(rels, JaxConfig())
     jax_lines = [format_result(jax_ex.execute(q), len(q.projections))
                  for q in queries]
     want = _oracle_lines(rels, queries)
     assert got == want
     assert jax_lines == want
-    assert eng.executor.counters["queries"] == len(queries)
+    assert eng.batch_executor.counters["ftree_queries"] == 0
     return got
 
 
@@ -159,39 +161,41 @@ def test_wide_u64_dictionary_catalog():
 
 
 def test_domain_beyond_max_dense_domain():
-    """The per-query path builds its catalog directly; the batch path
-    serves the same catalog with its sort backend. Both agree."""
+    """A catalog past max_dense_domain: the forced sort backend one query
+    a call and the default backend choice (which picks the sort join
+    there) over a whole batch agree."""
     rng = np.random.default_rng(3)
     rels = [Relation([rng.integers(0, 1 << 12, 500).astype(np.uint64)
                       for _ in range(2)]) for _ in range(3)]
     queries = [_random_query(rng, rels) for _ in range(6)]
-    cfg = EngineConfig(batch_execution=False, max_dense_domain=512)
+    cfg = EngineConfig(join_backend="sort", max_dense_domain=512)
     got = _agree(rels, queries, cfg)
     prels, pqueries = _to_port(rels, queries)
-    assert Engine(prels, cfg, device="cpu").executor.catalog.domain > 512
+    eng = Engine(prels, cfg, device="cpu")
+    assert eng.batch_executor.catalog.domain > 512
     batch = Engine(prels, EngineConfig(max_dense_domain=512), device="cpu")
     assert batch.batch_executor.join.kind == "sort"
     assert batch.run_batch(pqueries) == got
 
 
 def test_sort_backend_only_per_query():
-    """join_backend="sort" runs on both paths (the name is from when the
-    batch path refused it), with the same lines."""
+    """join_backend="sort" runs one query a call and a whole batch (the
+    name is from when the batch path refused it), with the same lines."""
     rels = _shapes_catalog()
     queries = list(SHAPES.values())
     prels, pqueries = _to_port(rels, queries)
-    per_query = Engine(prels, EngineConfig(batch_execution=False,
-                                           join_backend="sort"),
-                       device="cpu").run_batch(pqueries)
-    batch = Engine(prels, EngineConfig(join_backend="sort"), device="cpu")
+    batch = Engine(prels, PER_QUERY, device="cpu")
+    per_query = [format_result(batch.execute(q), len(q.projections))
+                 for q in pqueries]
     assert batch.run_batch(pqueries) == per_query == _oracle_lines(rels,
                                                                    queries)
-    assert batch.executor.counters["queries"] == 0
+    assert batch.batch_executor.counters["ftree_queries"] == 0
 
 
 def test_pair_cap_raises_like_jax():
     """2**31 pairs (65,536 x 32,768 equal keys) exceed the int32 offset
-    space: both executors raise instead of overflowing."""
+    space: JaxExecutor and the port's sort join raise instead of
+    overflowing."""
     rels = [_u64(np.full(1 << 16, 5)), _u64(np.full(1 << 15, 5))]
     q = Query([0, 1], [JoinPred(0, 0, 1, 0)], [], [Projection(0, 0)])
     with pytest.raises(JaxCapacity):
@@ -202,21 +206,39 @@ def test_pair_cap_raises_like_jax():
 
 
 def test_executor_shares_the_batch_catalog():
-    """With batching on, Engine.execute runs the per-query executor over
-    the wave's own catalog, and both paths agree on tree queries."""
+    """Engine.execute runs a batch of one through the engine's one
+    executor, over the wave's own catalog (one dispatch and one readback
+    a tree query), and agrees with the whole batch on tree queries."""
     rng = np.random.default_rng(21)
     rels = _random_catalog(rng)
     prels, _ = _to_port(rels)
     eng = Engine(prels, EngineConfig(), device="cpu")
-    assert isinstance(eng.executor, TorchExecutor)
-    assert eng.executor.catalog is eng.batch_executor.catalog
+    assert not hasattr(eng, "executor")
     from test_factorized import _tree_query
     queries = [_tree_query(rng, rels) for _ in range(6)]
     _, pqueries = _to_port(rels, queries)
     per_query = [format_result(eng.execute(q), len(q.projections))
                  for q in pqueries]
+    counters = dict(eng.batch_executor.counters)
+    assert counters["dispatches"] == counters["readbacks"] == len(queries)
+    assert counters["ftree_queries"] == len(queries)
     assert per_query == eng.run_batch(pqueries) == _oracle_lines(rels,
                                                                  queries)
+
+
+def test_execute_is_a_batch_of_one_on_every_shape():
+    """On the default (dense) backend, Engine.execute answers each query
+    shape, those the wave plans and those the materialized fallback
+    runs, as a batch of one: the whole batch's line and the oracle's."""
+    rels = _shapes_catalog()
+    queries = list(SHAPES.values())
+    prels, pqueries = _to_port(rels, queries)
+    eng = Engine(prels, EngineConfig(), device="cpu")
+    assert eng.batch_executor.join.kind == "dense"
+    one = [format_result(eng.execute(q), len(q.projections))
+           for q in pqueries]
+    whole = Engine(prels, EngineConfig(), device="cpu").run_batch(pqueries)
+    assert one == whole == _oracle_lines(rels, queries)
 
 
 # ---- the CLI ----
@@ -237,20 +259,22 @@ def _cli(args, stream):
 
 
 def test_cli_no_batch_matches_oracle(tmp_path):
+    """--backend sort, the CLI's materializing sort join (it replaces the
+    retired --no-batch), prints the oracle's lines."""
     rels = _shapes_catalog()
     rng = np.random.default_rng(5)
     queries = list(SHAPES.values()) + [_random_query(rng, rels)
                                        for _ in range(6)]
-    proc = _cli(["--device", "cpu", "--no-batch"],
+    proc = _cli(["--device", "cpu", "--backend", "sort"],
                 _stream(_write_catalog(tmp_path, rels), queries))
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.splitlines() == _oracle_lines(rels, queries)
 
 
 def test_cli_batch_mode_still_raises_for_cycles(tmp_path):
-    """Without --no-batch the wave-batched path answers a cycle it cannot
-    factorize with its materialized fallback (the name is from when it
-    refused): the same lines as --no-batch and the oracle."""
+    """The default wave-batched path answers a cycle it cannot factorize
+    with its materialized fallback (the name is from when it refused):
+    the same lines as --backend sort and the oracle."""
     rels = _shapes_catalog()
     queries = [SHAPES["triangle"], SHAPES["no_join"], SHAPES["case1_wipe"]]
     stream = _stream(_write_catalog(tmp_path, rels), queries)
@@ -258,6 +282,6 @@ def test_cli_batch_mode_still_raises_for_cycles(tmp_path):
     assert proc.returncode == 0, proc.stderr
     want = _oracle_lines(rels, queries)
     assert proc.stdout.splitlines() == want
-    proc = _cli(["--device", "cpu", "--no-batch"], stream)
+    proc = _cli(["--device", "cpu", "--backend", "sort"], stream)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.splitlines() == want

@@ -119,11 +119,12 @@ def test_fault_a_planner_falls_back_only_there():
         assert be._extract_tree(parse_query(line)) is not None, line
 
 
-@pytest.mark.parametrize("flags", [[], ["--no-batch"], ["--mesh", "2"]],
+@pytest.mark.parametrize("flags", [[], ["--backend", "sort"],
+                                   ["--mesh", "2"]],
                          ids=lambda f: " ".join(f) or "default")
 def test_fault_a_cli(tmp_path, flags):
-    """Through the CLI: the default path, the per-query executor and two
-    gloo ranks (--mesh 2) print NULL NULL."""
+    """Through the CLI: the default path, the sort backend's per-op path
+    and two gloo ranks (--mesh 2) print NULL NULL."""
     assert _cli(tmp_path, A_COLS, A_QUERY, *flags) == ["NULL NULL"]
 
 

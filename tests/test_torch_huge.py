@@ -11,16 +11,17 @@ tails included. The engine tests mirror the JAX huge-path tests of
 tests/test_factorized.py (lazy gathers, the lazy star, uint16 planes,
 window builds, sorted windows, two huge nodes of different lengths,
 unpackable payloads): the port's Engine and the JAX Engine run the same
-seeded relations under ftree_window_sort "off" and "on", and their lines
-must equal each other and the oracle's. The port accepts every
-ftree_window_sort value and runs one unsorted window pass for all of
-them, so its lines under "on" are held against the reference's sorted
-windows. The unit tests hold the window machinery itself against its
-JAX counterpart: _fused_node_pass under each of the reference's window
-policies and at several window sizes (tables element-exact, each int64
-fold equal to the JAX (5, 3) fold decoded by combine_weighted_segments,
-the NULL flag equal), weighted_partials_big and scatter_add_window onto
-a nonzero accumulator. Tolerance: exact equality everywhere.
+seeded relations, JAX under ftree_window_sort "off" and "on", and their
+lines must equal each other and the oracle's. The port has no window
+setting: it runs one unsorted window pass, so its lines are held
+against the reference's sorted windows too. The unit tests hold the
+window machinery itself against its JAX counterpart: _fused_node_pass
+under each of the reference's window policies and at several window
+sizes (tables element-exact, each int64 fold equal to the JAX (5, 3)
+fold decoded by combine_weighted_segments, the NULL flag equal),
+weighted_partials_big and the port's one window build
+(scatter_add_window) onto a nonzero accumulator against JAX's under each
+of its build names. Tolerance: exact equality everywhere.
 """
 
 import jax
@@ -71,24 +72,22 @@ def _col(rng, hi, n):
     return rng.integers(0, hi, n).astype(U64)
 
 
-def _lines_agree(rels, queries, wsorts=("off", "on"), jax_cfg=None,
-                 port_cfg=None):
-    """Port lines == JAX lines == oracle lines under each wsort, with the
-    same count of factorized queries; returns the last port engine."""
+def _lines_agree(rels, queries, wsorts=("off", "on"), jax_cfg=None):
+    """Port lines == oracle lines == JAX lines under each of its window
+    sorts `wsorts` (and `jax_cfg`), with the same count of factorized
+    queries; returns the port engine."""
     oracle = OracleExecutor(rels)
     want = [format_result(oracle.execute(q), len(q.projections))
             for q in queries]
     prels, pqueries = _to_port(rels, queries)
+    eng = Engine(prels, EngineConfig(), device="cpu")
+    assert eng.run_workload([pqueries]) == want
+    assert eng.batch_executor.counters["ftree_queries"] == len(queries)
     for ws in wsorts:
         jeng = JaxEngine(rels, JaxConfig(ftree_window_sort=ws,
                                          **(jax_cfg or {})))
         assert jeng.run_workload([queries]) == want, ws
-        eng = Engine(prels, EngineConfig(ftree_window_sort=ws,
-                                         **(port_cfg or {})), device="cpu")
-        assert eng.run_workload([pqueries]) == want, ws
-        assert (eng.batch_executor.counters["ftree_queries"]
-                == jeng.batch_executor.counters["ftree_queries"]
-                == len(queries))
+        assert jeng.batch_executor.counters["ftree_queries"] == len(queries)
     return eng
 
 
@@ -207,11 +206,12 @@ def test_narrow_uint16_planes_fold_exact():
 
 
 @pytest.mark.parametrize("cfg", [{"factorized": False},
-                                 {"batch_execution": False}])
+                                 {"join_backend": "sort"}])
 def test_uint16_planes_on_materialized_paths(cfg):
-    """The materialized fallback and the per-query executor look planes
-    up by row id and read int32 copies of the uint16 planes
-    (int32_planes): the identity and the dictionary catalog."""
+    """The materialized fallback's dense stages and the sort backend's
+    per-op path look planes up by row id and read int32 copies of the
+    uint16 planes (int32_planes): the identity and the dictionary
+    catalog."""
     rng = np.random.default_rng(12)
     n = 2048 + 99
     q = Query([0, 1], [JoinPred(0, 0, 1, 0)], [FilterPred(1, 1, "<", 900)],
@@ -224,10 +224,9 @@ def test_uint16_planes_on_materialized_paths(cfg):
         prels, pq = _to_port([fact, dim], [q])
         eng = Engine(prels, EngineConfig(**cfg), device="cpu")
         assert eng.run_workload([pq]) == want
-        cat = (eng.batch_executor or eng.executor).catalog
+        cat = eng.batch_executor.catalog
         assert [p.dtype for p, _s in cat.int32_planes(0, 1)] == [torch.int32]
-        jcfg = {k: v for k, v in cfg.items() if k == "factorized"}
-        assert JaxEngine([fact, dim], JaxConfig(**jcfg)).run_workload(
+        assert JaxEngine([fact, dim], JaxConfig(**cfg)).run_workload(
             [[q]]) == want
 
 
@@ -252,10 +251,9 @@ def test_uint16_plane_realiases_to_the_join_column():
 
 def test_window_builds_under_jax_hier_scatter():
     """The JAX engine's hierarchical window builds (ftree_scatter="hier")
-    against the port's one build kernel ("onehot")."""
+    against the port's one window build."""
     rels = _star_rels(5, n=4 * 4096 + 33, k1=300, k2=200)
-    _lines_agree(rels, STAR_QUERIES[:2], jax_cfg={"ftree_scatter": "hier"},
-                 port_cfg={"ftree_scatter": "onehot"})
+    _lines_agree(rels, STAR_QUERIES[:2], jax_cfg={"ftree_scatter": "hier"})
 
 
 def test_huge_chain_two_deep_matches_jax():
@@ -503,10 +501,11 @@ def test_window_loops_cap_below_2_31_rows():
                                   "hier_presorted"])
 def test_scatter_add_window_onto_nonzero_accumulator(impl):
     """acc[idxs] += weights in place, indices past the end (the masked-row
-    sentinel and beyond) dropped: equal to the reference's
-    acc.at[idxs].add(weights, mode="drop"). Negative indices drop too,
-    where the reference's XLA build wraps them (the declared divergence
-    of ROADMAP.md §3; the wave never emits them)."""
+    sentinel and beyond) dropped: equal to the reference's window build
+    under `impl` ("auto" and "onehot" off a TPU, and "hier", fall
+    through to or equal acc.at[idxs].add(weights, mode="drop")).
+    Negative indices drop too, where the reference's XLA build wraps them
+    (a declared divergence, ROADMAP.md; the wave never emits them)."""
     rng = np.random.default_rng(9)
     n_bins, n = 777, 5000
     acc = rng.integers(0, 2**20, n_bins).astype(np.int32)
@@ -516,38 +515,35 @@ def test_scatter_add_window_onto_nonzero_accumulator(impl):
     w = rng.integers(0, 1000, n).astype(np.int32)
     tacc = torch.from_numpy(acc.copy())
     got = tables.scatter_add_window(tacc, torch.from_numpy(idxs),
-                                    torch.from_numpy(w), impl)
+                                    torch.from_numpy(w))
     assert got is tacc
     want = jax_tables.scatter_add_window(jnp.asarray(acc), jnp.asarray(idxs),
-                                         jnp.asarray(w), "xla")
+                                         jnp.asarray(w), impl)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     before = got.clone()
     neg = torch.tensor([-1, -2, -777], dtype=torch.int32)
-    tables.scatter_add_window(got, neg, torch.ones(3, dtype=torch.int32),
-                              impl)
+    tables.scatter_add_window(got, neg, torch.ones(3, dtype=torch.int32))
     assert torch.equal(got, before)
 
 
 @pytest.mark.parametrize("value", ["auto", "on", "off", "mono"])
 def test_window_sort_values_run_one_pass(value):
-    """Every ftree_window_sort value is accepted and plans the same wave
-    (the port has one window pass); an unknown value raises."""
+    """The port has one window pass and no window setting: the JAX engine
+    under each of its ftree_window_sort values prints the port's lines,
+    and the port refuses the field."""
     rels = _star_rels(3, n=2048 + 5, k1=30, k2=20)
-    prels, pq = _to_port(rels, STAR_QUERIES[:1])
-    want = Engine(prels, EngineConfig(), device="cpu").run_workload([pq])
-    eng = Engine(prels, EngineConfig(ftree_window_sort=value), device="cpu")
-    assert eng.run_workload([pq]) == want
-    with pytest.raises(ValueError, match="ftree_window_sort"):
-        EngineConfig(ftree_window_sort=value + "x")
+    _lines_agree(rels, STAR_QUERIES[:1], wsorts=(value,))
+    with pytest.raises(TypeError, match="ftree_window_sort"):
+        EngineConfig(ftree_window_sort=value)
 
 
 @pytest.mark.parametrize("impl", ["mxu", "xla", "sorted", "hier",
                                   "hier_presorted"])
 def test_scatter_add_window_unported_impls_raise(impl):
-    """The reference's window builds run (the name is from when they
-    raised): under each name the port adds in place what JAX's
-    scatter_add_window adds under the same name ("sorted" falls through
-    to the engine in both), on a sorted window with masked rows on the
+    """The reference's window builds (the name is from when the port
+    raised for them): under each name JAX's scatter_add_window adds what
+    the port's one window build adds in place ("sorted" falls through to
+    the engine in JAX), on a sorted window with masked rows on the
     sentinel."""
     rng = np.random.default_rng(len(impl))
     n_bins, n = 3000, 9000
@@ -556,7 +552,7 @@ def test_scatter_add_window_unported_impls_raise(impl):
     w = rng.integers(0, 1000, n).astype(np.int32)
     tacc = torch.from_numpy(acc.copy())
     got = tables.scatter_add_window(tacc, torch.from_numpy(idxs),
-                                    torch.from_numpy(w), impl)
+                                    torch.from_numpy(w))
     assert got is tacc
     want = jax_tables.scatter_add_window(jnp.asarray(acc), jnp.asarray(idxs),
                                          jnp.asarray(w), impl)

@@ -1,7 +1,8 @@
-"""The per-query executor's device ops of the PyTorch port
+"""The materializing path's device ops of the PyTorch port
 (radixhashjoin_tpu_torch/ops: compact, filter, join, join_dense,
-aggregate) against their JAX counterparts, exactly (integers,
-tolerance 0: every output array element-equal).
+aggregate) against their JAX counterparts (the ops of JAX's per-query
+executor), exactly (integers, tolerance 0: every output array
+element-equal).
 
 Inputs come from numpy with a seed and go to both packages. Covered:
 ties, empty sides (live count 0), live counts below the padded length,
@@ -265,7 +266,10 @@ def test_sum_column_over_rows_matches_jax(count, vmax):
     rng = np.random.default_rng(count)
     col = rng.integers(0, vmax, 5000).astype(np.int32)
     rows = rng.integers(0, 5000, 2048).astype(np.int32)
-    got = tagg.sum_column_over_rows(_t(col), _t(rows), count)
+    # the port's projection partial: the rows as one intermediate-matrix
+    # row, an int64 sum on the device (exact: count x vmax < 2**63)
+    got = int(tagg.gather_partials_matrix(_t(col), _t(rows)[None], 0,
+                                          count)[0])
     want = jagg.sum_column_over_rows(jnp.asarray(col), jnp.asarray(rows),
                                      jnp.int32(count))
     assert got == want == int(col[rows[:count]].astype(np.uint64).sum())

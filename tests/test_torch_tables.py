@@ -4,12 +4,14 @@
 The port's plain versions must equal the JAX reference kernels exactly
 (integers, tolerance 0): the weighted bincount against the Pallas one-hot
 kernel in interpret mode and the XLA scatter; the gather against the
-Pallas gather kernel in interpret mode and numpy. The JAX package's other
-table variants (mxu, hier, sorted, one-hot, diffcum, the fused double
-lookup) and the impl dispatch must equal JAX's functions of the same name
-element for element. The CUDA kernels themselves run only on a card
-(tests/test_torch_cuda.py, chip_smoke.py); here the kernel module must
-import and refuse cleanly without nvcc.
+Pallas gather kernel in interpret mode and numpy. The port has one build
+and one lookup a device, picked by the tensor's device; every table
+variant of JAX's dispatch (mxu, hier, sorted, one-hot, diffcum, the fused
+double lookup) and every impl name it takes must give the values of the
+port's one dispatch on the same inputs, element for element. The CUDA
+kernels themselves run only on a card (tests/test_torch_cuda.py,
+chip_smoke.py); here the kernel module must import and refuse cleanly
+without nvcc.
 """
 
 import jax.numpy as jnp
@@ -49,7 +51,7 @@ def test_bincount_plain_matches_jax(n, n_bins, wmax):
     assert got.dtype == np.int32
     np.testing.assert_array_equal(got, xla)
     via_dispatch = scatter_table(torch.from_numpy(idx), torch.from_numpy(w),
-                                 n_bins, "onehot").numpy()
+                                 n_bins).numpy()
     np.testing.assert_array_equal(via_dispatch, xla)
     # negative indices: the Pallas kernel (and the port) drop them; the
     # XLA scatter would wrap them numpy-style, so it is left out here
@@ -244,13 +246,14 @@ def test_tables_plain_on_unaligned_views(offset, rem):
 @pytest.mark.parametrize("impl", ["mxu", "hier", "sorted", "xla", "auto",
                                   "onehot", "hier_presorted", "unknown"])
 def test_unported_impls_raise(impl):
-    """Every impl name runs (the test's name is from when the TPU-shaped
-    ones raised): scatter_table, table_gather and table_gather2 under
-    each equal JAX's dispatch under the same name, element for element,
-    including JAX's fall-through to the engines for names it does not
-    branch on (in-range lookup keys: JAX's engine gather promises them).
-    JAX's "onehot" build is its Pallas kernel, which interpret mode runs
-    slowly; its MXU build stands in (the same values)."""
+    """JAX's dispatch under every impl name (the test's name is from when
+    the TPU-shaped ones raised) gives the values of the port's one
+    scatter_table, table_gather and table_gather2, which take no name,
+    element for element; including JAX's fall-through to the engines for
+    names it does not branch on (in-range lookup keys: JAX's engine
+    gather promises them). JAX's "onehot" build is its Pallas kernel,
+    which interpret mode runs slowly; its MXU build stands in (the same
+    values)."""
     rng = np.random.default_rng(len(impl))
     n, bins = 3000, 600
     idx = rng.integers(0, bins + 4, n).astype(np.int32)
@@ -259,23 +262,22 @@ def test_unported_impls_raise(impl):
     want = np.asarray(jtables.scatter_table(jnp.asarray(idx), jnp.asarray(w),
                                             bins, jimpl))
     np.testing.assert_array_equal(
-        scatter_table(_t(idx), _t(w), bins, impl).numpy(), want)
+        scatter_table(_t(idx), _t(w), bins).numpy(), want)
     table = rng.integers(-2**31, 2**31 - 1, bins).astype(np.int32)
     keys = rng.integers(0, bins, n).astype(np.int32)
     want = np.asarray(jtables.table_gather(jnp.asarray(table),
                                            jnp.asarray(keys), impl))
     np.testing.assert_array_equal(
-        table_gather(_t(table), _t(keys), impl).numpy(), want)
+        table_gather(_t(table), _t(keys)).numpy(), want)
     ja, jb = jtables.table_gather2(jnp.asarray(table),
                                    jnp.asarray(table[::-1]),
                                    jnp.asarray(keys), impl)
-    pa, pb = ptables.table_gather2(_t(table), _t(table[::-1]), _t(keys),
-                                   impl)
+    pa, pb = ptables.table_gather2(_t(table), _t(table[::-1]), _t(keys))
     np.testing.assert_array_equal(pa.numpy(), np.asarray(ja))
     np.testing.assert_array_equal(pb.numpy(), np.asarray(jb))
 
 
-# ---- the JAX package's other variants (ops/tables.py), by JAX's algorithm
+# ---- the JAX package's other variants, held to the port's one dispatch
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
@@ -316,12 +318,12 @@ BUILD_VARIANT_CASES = ["zipf", "negatives_out_of_range", "sparse_spilling",
 @pytest.mark.parametrize("name", ["sorted", "mxu", "hier"])
 @pytest.mark.parametrize("case", BUILD_VARIANT_CASES)
 def test_build_variant_matches_jax(name, case):
-    """weighted_bincount_{sorted,mxu,hier} equal JAX's function of the
-    same name on the same inputs (negative keys too: each drops them) and
-    the plain build."""
+    """The port's one build (scatter_table) equals JAX's
+    weighted_bincount_{sorted,mxu,hier} on the same inputs (negative keys
+    too: each drops them) and the plain build."""
     rng = np.random.default_rng(len(case) * 7 + len(name))
     idx, w, bins = _build_input(case, rng)
-    got = getattr(ptables, f"weighted_bincount_{name}")(_t(idx), _t(w), bins)
+    got = scatter_table(_t(idx), _t(w), bins)
     assert got.dtype == torch.int32 and got.shape == (bins,)
     want = np.asarray(getattr(jtables, f"weighted_bincount_{name}")(
         jnp.asarray(idx), jnp.asarray(w), bins))
@@ -333,10 +335,11 @@ def test_build_variant_matches_jax(name, case):
 @pytest.mark.parametrize("case", ["sorted", "sentinel_anchored_block",
                                   "imperfect_order", "sparse_spilling"])
 def test_hier_presorted_matches_jax(case):
-    """The hier build with presorted=True (a window of a node-sorted
-    column), small blocks: sorted keys; a block anchored at the mask
-    sentinel n_bins holding later smaller keys (they spill); an
-    imperfect order; sparse keys that leave their windows."""
+    """JAX's hier build with presorted=True (a window of a node-sorted
+    column), small blocks, against the port's window build
+    (scatter_add_window into a zero table): sorted keys; a block anchored
+    at the mask sentinel n_bins holding later smaller keys (they spill);
+    an imperfect order; sparse keys that leave their windows."""
     rng = np.random.default_rng(len(case))
     n, bins, block, sub = 4000, 900, 128, 128
     idx = np.sort(rng.integers(0, bins, n)).astype(np.int32)
@@ -349,9 +352,8 @@ def test_hier_presorted_matches_jax(case):
         idx = np.sort(rng.integers(0, 1 << 16, n)).astype(np.int32)
         bins = 1 << 16
     w = rng.integers(0, 1 << 20, n).astype(np.int32)
-    got = ptables.weighted_bincount_hier(_t(idx), _t(w), bins,
-                                         block_rows=block, sub_width=sub,
-                                         presorted=True).numpy()
+    got = ptables.scatter_add_window(
+        torch.zeros(bins, dtype=torch.int32), _t(idx), _t(w)).numpy()
     want = np.asarray(jtables.weighted_bincount_hier(
         jnp.asarray(idx), jnp.asarray(w), bins, block_rows=block,
         sub_width=sub, presorted=True))
@@ -386,10 +388,10 @@ LOOKUP_VARIANT_CASES = ["zipf", "out_of_range", "sparse_spilling", "1x5",
 
 @pytest.mark.parametrize("case", LOOKUP_VARIANT_CASES)
 def test_gather_onehot_matches_jax(case):
-    """table_gather_onehot (unsorted keys, out-of-range ones give 0)
-    equals JAX's and the plain lookup."""
+    """The port's one lookup (table_gather; unsorted keys, out-of-range
+    ones give 0) equals JAX's table_gather_onehot and the plain lookup."""
     table, keys = _lookup_input(case, np.random.default_rng(len(case)))
-    got = ptables.table_gather_onehot(_t(table), _t(keys)).numpy()
+    got = table_gather(_t(table), _t(keys)).numpy()
     np.testing.assert_array_equal(got, np.asarray(jtables.table_gather_onehot(
         jnp.asarray(table), jnp.asarray(keys))))
     np.testing.assert_array_equal(
@@ -399,23 +401,21 @@ def test_gather_onehot_matches_jax(case):
 @pytest.mark.parametrize("name", ["diffcum", "hier"])
 @pytest.mark.parametrize("case", LOOKUP_VARIANT_CASES)
 def test_sorted_gather_variant_matches_jax(name, case):
-    """table_gather_{diffcum,hier} on sorted keys equal JAX's function of
-    the same name and the plain lookup; the hier lookup with 128-key
-    blocks and windows (test_one_hot_chunks runs JAX's sizes), and in two
-    cases also on the unsorted keys (every out-of-window key takes the
-    spill gather)."""
+    """The port's one lookup (table_gather) on sorted keys equals JAX's
+    table_gather_{diffcum,hier} and the plain lookup; JAX's hier lookup
+    with 128-key blocks and windows, and in two cases also on the
+    unsorted keys (every out-of-window key takes its spill gather)."""
     table, keys = _lookup_input(case, np.random.default_rng(len(case) + 3))
-    fn_p = getattr(ptables, f"table_gather_{name}")
     fn_j = getattr(jtables, f"table_gather_{name}")
     kw = {"block_rows": 128, "sub_width": 128} if name == "hier" else {}
     sk = np.sort(keys)
-    got = fn_p(_t(table), _t(sk), **kw).numpy()
+    got = table_gather(_t(table), _t(sk)).numpy()
     np.testing.assert_array_equal(
         got, np.asarray(fn_j(jnp.asarray(table), jnp.asarray(sk), **kw)))
     np.testing.assert_array_equal(
         got, table_gather_torch(_t(table), _t(sk)).numpy())
     if name == "hier" and case in ("zipf", "out_of_range"):
-        got = fn_p(_t(table), _t(keys), block_rows=64, sub_width=32).numpy()
+        got = table_gather(_t(table), _t(keys)).numpy()
         np.testing.assert_array_equal(got, np.asarray(fn_j(
             jnp.asarray(table), jnp.asarray(keys), block_rows=64,
             sub_width=32)))
@@ -423,10 +423,9 @@ def test_sorted_gather_variant_matches_jax(name, case):
 
 @pytest.mark.parametrize("case", LOOKUP_VARIANT_CASES)
 def test_gather2_matches_jax(case):
-    """table_gather2: the plain version of the fused kernel ("auto",
-    "onehot" on a CPU tensor) and "xla" equal JAX's table_gather2 (its
-    one-hot matmul of both tables' bytes under "onehot") and two plain
-    lookups."""
+    """table_gather2 (on a CPU tensor, the plain version of the fused
+    kernel) equals JAX's table_gather2 (its one-hot matmul of both
+    tables' bytes under "onehot") and two plain lookups."""
     rng = np.random.default_rng(len(case) + 9)
     ta, keys = _lookup_input(case, rng)
     tb = rng.integers(-2**31, 2**31 - 1, ta.shape[0]).astype(np.int32)
@@ -437,10 +436,9 @@ def test_gather2_matches_jax(case):
                                    jnp.asarray(keys), "onehot")
     np.testing.assert_array_equal(np.asarray(ja), want[0])
     np.testing.assert_array_equal(np.asarray(jb), want[1])
-    for impl in ("auto", "onehot", "xla"):
-        ga, gb = ptables.table_gather2(_t(ta), _t(tb), _t(keys), impl)
-        np.testing.assert_array_equal(ga.numpy(), want[0])
-        np.testing.assert_array_equal(gb.numpy(), want[1])
+    ga, gb = ptables.table_gather2(_t(ta), _t(tb), _t(keys))
+    np.testing.assert_array_equal(ga.numpy(), want[0])
+    np.testing.assert_array_equal(gb.numpy(), want[1])
 
 
 @pytest.mark.parametrize("case", LOOKUP_VARIANT_CASES)
@@ -456,57 +454,6 @@ def test_gather_pairs_matches_jax(case):
     ga, gb = ptables.table_gather_pairs(_t(np.stack([ta, tb], 1)), _t(keys))
     np.testing.assert_array_equal(ga.numpy(), np.asarray(ja))
     np.testing.assert_array_equal(gb.numpy(), np.asarray(jb))
-
-
-@pytest.mark.parametrize("variant", ["mxu", "hier", "onehot", "hier_gather"])
-def test_one_hot_chunks(variant, monkeypatch):
-    """With ONEHOT_CHUNK_BYTES shrunk so that a call takes many chunks
-    (the last one ragged), each one-hot variant still equals JAX's."""
-    monkeypatch.setattr(ptables, "ONEHOT_CHUNK_BYTES", 40000)
-    rng = np.random.default_rng(17)
-    n, bins = 30001, 1000
-    idx = rng.integers(-3, bins + 3, n).astype(np.int32)
-    w = rng.integers(0, 1000, n).astype(np.int32)
-    table = rng.integers(-2**31, 2**31 - 1, bins).astype(np.int32)
-    if variant in ("mxu", "hier"):
-        got = getattr(ptables, f"weighted_bincount_{variant}")(
-            _t(idx), _t(w), bins, **({"block_rows": 256, "sub_width": 256}
-                                     if variant == "hier" else {}))
-        want = getattr(jtables, f"weighted_bincount_{variant}")(
-            jnp.asarray(idx), jnp.asarray(w), bins,
-            **({"block_rows": 256, "sub_width": 256}
-               if variant == "hier" else {}))
-    elif variant == "onehot":
-        got = ptables.table_gather_onehot(_t(table), _t(idx))
-        want = jtables.table_gather_onehot(jnp.asarray(table),
-                                           jnp.asarray(idx))
-    else:
-        sk = np.sort(idx)
-        got = ptables.table_gather_hier(_t(table), _t(sk))
-        want = jtables.table_gather_hier(jnp.asarray(table), jnp.asarray(sk))
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-
-
-def test_hier_sizes_read_at_call_time(monkeypatch):
-    """The HIER_* block and window sizes are read at call time, as JAX's
-    are: shrunk in both packages, the builds and lookups still agree."""
-    for mod in (ptables, jtables):
-        monkeypatch.setattr(mod, "HIER_BLOCK_ROWS", 64)
-        monkeypatch.setattr(mod, "HIER_SUB_WIDTH", 32)
-        monkeypatch.setattr(mod, "HIER_GATHER_BLOCK_ROWS", 32)
-        monkeypatch.setattr(mod, "HIER_GATHER_SUB_WIDTH", 16)
-    rng = np.random.default_rng(3)
-    idx = np.sort(rng.integers(0, 500, 3000)).astype(np.int32)
-    w = rng.integers(0, 100, 3000).astype(np.int32)
-    np.testing.assert_array_equal(
-        ptables.weighted_bincount_hier(_t(idx), _t(w), 500).numpy(),
-        np.asarray(jtables.weighted_bincount_hier(jnp.asarray(idx),
-                                                  jnp.asarray(w), 500)))
-    table = rng.integers(-2**31, 2**31 - 1, 500).astype(np.int32)
-    np.testing.assert_array_equal(
-        ptables.table_gather_hier(_t(table), _t(idx)).numpy(),
-        np.asarray(jtables.table_gather_hier(jnp.asarray(table),
-                                             jnp.asarray(idx))))
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
