@@ -7,8 +7,8 @@ Phases (any failure raises and exits non-zero; nothing is swallowed):
 
   0. the card (nvidia-smi name + power limit), torch and CUDA versions;
   1. build the hand-written kernels (csrc/tables.cu, csrc/radix.cu,
-     csrc/select.cu) with nvcc, one process per source, started
-     together;
+     csrc/select.cu, csrc/probe.cu) with nvcc, one process per source,
+     started together;
   2. each kernel against its plain PyTorch version on the card, at the
      shapes its path gives it: element-exact (torch.equal), timed with
      CUDA events (warm-up, then 20 launches of each) beside one PyTorch
@@ -25,7 +25,11 @@ Phases (any failure raises and exits non-zero; nothing is swallowed):
      the select kernel at 2^27 lanes of SSB flight 1's columns (1, 2 and
      4 predicates, identity and rowid input) against the chain of
      one-predicate filters, beside torch.nonzero_static of the mask and
-     the whole select from library calls (select_library);
+     the whole select from library calls (select_library); the sort
+     join's probe kernel at 2^27 left lanes (13%, 89% and all live) into
+     R = 4,096 and 2^20 sorted right values against the plain version,
+     beside the part of it the kernel replaces (probe_plain_left) and two
+     torch.searchsorted calls on the pre-gathered values;
   3. the CLI on a synthetic catalog shaped like the contest's `small`
      set (14 relations, ~270K uint64 tuples, 50 tree-shaped queries in
      5 batches; the generators of radixhashjoin_tpu_torch/bench.py, which
@@ -172,6 +176,9 @@ TRIANGLE_ROWS = 1 << 20
 SHOOTOUT_LOG_ROWS = 26
 # phase 2: the select kernel at the padded bucket of SSB SF 20's fact
 SELECT_LOG_LANES = 27
+# phase 2's probe kernel rows: the SSB SF 20 fact's padded lanes and rows
+PROBE_LOG_LANES = 27
+PROBE_FACT_ROWS = 120_000_000
 # phase 4b: past the 2^28-row huge-node threshold, ragged tails
 HUGE_ZIPF_ROWS = (1 << 29) + 12345
 HUGE_STAR_ROWS = (1 << 29) + 4099
@@ -288,6 +295,7 @@ def phase_kernels(dev):
                   f"n={kk.numel()} bins={b}")
     timed.update(_phase_radix_kernels(dev, gen, errs))
     timed["select"] = _phase_select_kernel(dev, gen, errs)
+    timed["probe"] = _phase_probe_kernel(dev, gen, errs)
     return timed, errs
 
 
@@ -511,6 +519,109 @@ def _phase_select_kernel(dev, gen, errs, log_lanes=SELECT_LOG_LANES):
                 main_row = row
             del got, want, lib, mask
     return main_row
+
+
+def probe_plain_left(col, rows, count, rs):
+    """What the probe kernel replaces, from library calls: the clamped
+    left gather, the -1 mask, two searchsorted calls into the sorted
+    right values and the int64 scan with its casts. Returns what
+    kernels.probe_cuda returns."""
+    import torch
+    from radixhashjoin_tpu_torch.ops.join import _counts_to_cum
+    lv = probe_library_values(col, rows, count)
+    lo = torch.searchsorted(rs, lv, side="left", out_int32=True)
+    counts = torch.searchsorted(rs, lv, side="right", out_int32=True) - lo
+    return (lo, *_counts_to_cum(counts))
+
+
+def probe_library_values(col, rows, count):
+    """The left side's values as the plain version searches them: the
+    clamped gather, lanes past the count -1."""
+    import torch
+    from radixhashjoin_tpu_torch.ops.filter import gather_clamped
+    lanes = torch.arange(rows.shape[0], dtype=torch.int32, device=rows.device)
+    return torch.where(lanes < count, gather_clamped(col, rows), -1)
+
+
+def _phase_probe_kernel(dev, gen, errs, log_lanes=PROBE_LOG_LANES,
+                        fact_rows=PROBE_FACT_ROWS):
+    """The sort join's probe kernel (kernels.probe_cuda, through
+    ops/join.py probe_gather_count) at the SSB cells' shapes: 2^27 left
+    lanes over a fact column of foreign keys, live 13% (a flight-1
+    filter's ascending survivors among the first `fact_rows`, a device
+    count), 89% (the unfiltered fact's identity, `fact_rows` live, a host
+    count) and all 2^27, into the sorted right side of a dimension of R =
+    4,096 (date) or 2^20 (customer, part) lanes, its keys unique and
+    every foreign key one of them. Each case exact against the plain version (probe_count of the
+    gathers, on the card); timed beside the part of the plain version the
+    kernel replaces (probe_plain_left), the library yardstick (two
+    torch.searchsorted calls on the pre-gathered values) and the bytes
+    bound (the live lanes' rowids and values read once, lo, offsets and
+    cum written once). Returns the 89%-live row into 2^20, the `mixed`
+    cell's shape."""
+    import torch
+    from radixhashjoin_tpu_torch import kernels
+    from radixhashjoin_tpu_torch.ops.join import (_sorted_right,
+                                                  probe_gather_count)
+    errs["probe"] = 0
+    n = 1 << log_lanes
+    main_row = None
+    for r, r_live in ((4096, 2556), (1 << 20, 1_000_000)):
+        keys = torch.randperm(4 * r_live, generator=gen,
+                              device=dev)[:r_live]
+        col_r = torch.cat([keys, torch.randint(0, 4 * r_live, (r - r_live,),
+                                               generator=gen, device=dev)]
+                          ).to(torch.int32)
+        rrows = torch.arange(r, dtype=torch.int32, device=dev)
+        col_l = col_r[torch.randint(0, r_live, (n,), generator=gen,
+                                    device=dev)]
+        _order, rs = _sorted_right(col_r, r_live)
+        sel = torch.rand(fact_rows, generator=gen, device=dev) < 0.13
+        picked = torch.nonzero(sel).flatten().to(torch.int32)
+        filtered = torch.zeros(n, dtype=torch.int32, device=dev)
+        filtered[:picked.numel()] = picked
+        cases = (("13% live, ascending rowids, device count", filtered,
+                  torch.tensor(picked.numel(), dtype=torch.int32,
+                               device=dev)),
+                 ("89% live, the identity, host count",
+                  torch.arange(n, dtype=torch.int32, device=dev),
+                  fact_rows),
+                 ("all live, the identity",
+                  torch.arange(n, dtype=torch.int32, device=dev), n))
+        for label, rows, cnt in cases:
+            live = int(cnt)
+            want = _probe_plain_gathered(col_l, rows, cnt, col_r, rrows,
+                                         r_live)
+            got = probe_gather_count(col_l, rows, cnt, col_r, rrows, r_live)
+            lv = probe_library_values(col_l, rows, cnt)
+            row = _report(
+                errs, "probe", f"n=2^{log_lanes} {label} ({live} live), "
+                f"R={r}", list(zip(got, want)),
+                lambda: kernels.probe_cuda(col_l, rows, cnt, rs),
+                lambda: probe_plain_left(col_l, rows, cnt, rs),
+                library=("two torch.searchsorted calls on the pre-gathered "
+                         "values",
+                         lambda: (torch.searchsorted(rs, lv, side="left"),
+                                  torch.searchsorted(rs, lv, side="right"))),
+                n_bytes=4 * (2 * live + 3 * n),
+                extra={"pairs": int(got[4]),
+                       "path_ms": _time_ms(lambda: probe_gather_count(
+                           col_l, rows, cnt, col_r, rrows, r_live)),
+                       "plain_path_ms": _time_ms(
+                           lambda: _probe_plain_gathered(
+                               col_l, rows, cnt, col_r, rrows, r_live))})
+            if r == 1 << 20 and live == fact_rows:
+                main_row = row
+            del want, got, lv
+        del col_l, col_r, rs, filtered, sel, picked
+    return main_row
+
+
+def _probe_plain_gathered(col_l, rows, count, col_r, rrows, rcount):
+    from radixhashjoin_tpu_torch.ops.filter import gather_clamped
+    from radixhashjoin_tpu_torch.ops.join import probe_count
+    return probe_count(gather_clamped(col_l, rows), count,
+                       gather_clamped(col_r, rrows), rcount)
 
 
 # ---- phase 3: the CLI on a contest-shaped synthetic catalog ----
@@ -2099,13 +2210,18 @@ def main() -> int:
     # in-process CLI and settings runs, whose per-op path and stage ops
     # filter through it
     kernels.SELECT_LAUNCHES = 0
+    kernels.PROBE_LAUNCHES = 0
     launches = timed_phase(phase_cli, dev)
     timed_phase(phase_faults, dev)
     default_lines = timed_phase(phase_fallback_cli, dev)
     launches_settings = timed_phase(phase_settings_cli, dev)
-    launches_select = {"select": kernels.SELECT_LAUNCHES}
+    launches_select = {"select": kernels.SELECT_LAUNCHES,
+                       "probe": kernels.PROBE_LAUNCHES}
     if launches_select["select"] == 0:
         raise AssertionError("the main path's filters skipped the select "
+                             "kernel")
+    if launches_select["probe"] == 0:
+        raise AssertionError("the sort backend's joins skipped the probe "
                              "kernel")
     _lines, dist = timed_phase(phase_scale, dev)
     _lines, launches_huge = timed_phase(phase_huge, dev)
@@ -2157,7 +2273,10 @@ def main() -> int:
          "radixhashjoin_tpu/ops/pallas_partition.py:92", launches_dist),
         ("select_cuda", "select", select,
          "none: radixhashjoin_tpu/ops/filter.py and ops/compact.py are "
-         "plain jnp", launches_select)]
+         "plain jnp", launches_select),
+        ("probe_cuda", "probe", "radixhashjoin_tpu_torch/csrc/probe.cu",
+         "none: radixhashjoin_tpu/ops/join.py probe_count is plain jnp",
+         launches_select)]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[key], "max_abs_err": errs[key],

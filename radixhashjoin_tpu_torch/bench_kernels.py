@@ -13,7 +13,9 @@ On the card it measures, at n = 2**log_rows rows over a 2**18 domain:
                                    (csrc/radix.cu), 256 bins
   dense_probe_tuples_per_s         ops/join_dense.dense_probe (build +
                                    two lookups on the kernels)
-  sort_probe_tuples_per_s          ops/join.probe_count (torch.sort)
+  sort_probe_tuples_per_s          ops/join.probe_gather_count (a
+                                   torch.sort of the right side, the
+                                   probe kernel of csrc/probe.cu)
   pallas_partition_tuples_per_s    ops/partition.partition_order, 256
                                    digits (the rank kernel), with the
                                    rank kernel alone (257 bins), the
@@ -45,7 +47,7 @@ from typing import Callable, Optional, Sequence, TextIO
 import torch
 
 from .models.engine import resolve_device
-from .ops.join import probe_count
+from .ops.join import probe_gather_count
 from .ops.join_dense import dense_probe
 from .ops.partition import (partition_order, radix_sort_order,
                             rank_and_hist, rank_and_hist_torch)
@@ -158,14 +160,18 @@ def run(dev: torch.device, log_rows: int, out: TextIO = sys.stdout) -> None:
     # join probes: the dense probe (build + lookups on the kernels) and
     # the sort probe compute the same five outputs
     rv = randint(DOMAIN, n)
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+
+    def sort_probe():
+        return probe_gather_count(idx, rows, n, rv, rows, n)
     dense = dense_probe(idx, n, rv, n, DOMAIN)
     for name, got, want in zip(("order", "lo", "offsets", "cum", "total"),
-                               dense, probe_count(idx, n, rv, n)):
+                               dense, sort_probe()):
         _equal(f"dense_probe {name} vs sort probe", got, want)
     del dense
     ms = b.ms(lambda: dense_probe(idx, n, rv, n, DOMAIN), 10)
     b.emit("dense_probe_tuples_per_s", "tuples/s", ms, b.rate(2 * n, ms))
-    ms = b.ms(lambda: probe_count(idx, n, rv, n), 10)
+    ms = b.ms(sort_probe, 10)
     b.emit("sort_probe_tuples_per_s", "tuples/s", ms, b.rate(2 * n, ms))
     del rv
 

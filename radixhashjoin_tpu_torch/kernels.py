@@ -12,6 +12,7 @@ module on machines with no nvcc and no card.
                     rhj_table_gather2
     csrc/radix.cu   rhj_radix_histogram, rhj_rank_hist
     csrc/select.cu  rhj_select
+    csrc/probe.cu   rhj_probe, rhj_probe_scratch_bytes
 
 A missing nvcc, a failed build, a refused launch or a wrong operand
 raises. There is no fallback: the ops modules send only CUDA tensors
@@ -20,9 +21,10 @@ here, and a CUDA tensor either runs the kernel or fails.
 `LAUNCHES` counts kernel launches per wrapper ("bincount", "gather",
 "gather2", "radix_hist", "rank_hist"), so a run can show that a path
 went through these kernels; `counted(fn)` reads the launches of one
-call. `SELECT_LAUNCHES` counts `select_cuda`'s launches apart from them:
-a traced benchmark run compares LAUNCHES with the csrc kernels its
-capture knows by name, and the select kernel is not among those yet.
+call. `SELECT_LAUNCHES` and `PROBE_LAUNCHES` count `select_cuda`'s and
+`probe_cuda`'s launches apart from them: a traced benchmark run compares
+LAUNCHES with the csrc kernels its capture knows by name, and the select
+and probe kernels are not among those yet.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ import torch
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {name: os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
-           for name in ("tables", "radix", "select")}
+           for name in ("tables", "radix", "select", "probe")}
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
@@ -56,6 +58,7 @@ SELECT_TILE = 4096
 LAUNCHES = {"bincount": 0, "gather": 0, "gather2": 0, "radix_hist": 0,
             "rank_hist": 0}
 SELECT_LAUNCHES = 0
+PROBE_LAUNCHES = 0
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -135,6 +138,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
                                    ptr, ptr, i32, ptr, i64, ptr, ptr, i32,
                                    ptr]
         lib.rhj_select.restype = i32
+    elif name == "probe":
+        lib.rhj_probe_scratch_bytes.argtypes = [i64, i64]
+        lib.rhj_probe_scratch_bytes.restype = i64
+        lib.rhj_probe.argtypes = [ptr, i64, ptr, i64, ptr, i64, ptr, i64,
+                                  ptr, ptr, ptr, ptr, ptr, i32, ptr]
+        lib.rhj_probe.restype = i32
     elif name == "tables":
         lib.rhj_weighted_bincount.argtypes = [ptr, ptr, i64, ptr, i32, i32,
                                               ptr]
@@ -443,3 +452,57 @@ def select_cuda(rows: Optional[torch.Tensor],
     _raise_on(err, "rhj_select")
     SELECT_LAUNCHES += 1
     return out, new_count
+
+
+def probe_cuda(col: torch.Tensor, rows: torch.Tensor,
+               count: Union[int, torch.Tensor], rs: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                          torch.Tensor]:
+    """(lo, offsets, cum, total): one launch of the sort join's probe.
+
+    The live left lanes are [0, count) of `rows` (int32 rowids into the
+    int32 column `col`, clamped to its ends; an empty column reads 0);
+    `count` is an int or one value on the same card, read there. `rs`:
+    the sorted int32 right values. Returns int32[len(rows)] lo, offsets
+    and cum and a 0-d int32 total, bit for bit what ops/join.py
+    probe_count gives on the gathered values (lanes past the count as its
+    -1 padding; total -1 past 2**31 - 1 pairs), all on the device:
+    nothing is read back."""
+    global PROBE_LAUNCHES
+    for name, t in (("col", col), ("rows", rows), ("rs", rs)):
+        _check(name, t)
+    device = rows.device
+    if col.device != device or rs.device != device:
+        raise ValueError("probe: col, rows and rs on different devices")
+    n, r = rows.shape[0], rs.shape[0]
+    if not 1 <= n < 2**31 or r >= 2**31:
+        raise ValueError(f"probe: {n} left lanes and {r} right values; "
+                         f"1 to 2**31 - 1 left lanes, fewer than 2**31 "
+                         f"right values")
+    count_dev, host_count = None, 0
+    if isinstance(count, torch.Tensor):
+        if count.device != device or count.numel() != 1:
+            raise ValueError("count: expected one value on the rowids' "
+                             "device")
+        count_dev = count.reshape(1).to(torch.int32).contiguous()
+    else:
+        host_count = max(min(int(count), n), 0)
+    lib = _load("probe")
+    # the three outputs as rows of one buffer, each 16-byte aligned
+    width = -(-n // 4) * 4
+    out = torch.empty((3, width), dtype=torch.int32, device=device)
+    lo, offsets, cum = out[0, :n], out[1, :n], out[2, :n]
+    total = torch.empty((), dtype=torch.int32, device=device)
+    scratch = torch.empty(lib.rhj_probe_scratch_bytes(n, r), dtype=torch.uint8,
+                          device=device)
+    sms, stream = _launch_env(rows)
+    with torch.cuda.device(device):
+        err = lib.rhj_probe(
+            col.data_ptr(), col.shape[0], rows.data_ptr(), n,
+            count_dev.data_ptr() if count_dev is not None else None,
+            host_count, rs.data_ptr(), r, lo.data_ptr(), offsets.data_ptr(),
+            cum.data_ptr(), total.data_ptr(), scratch.data_ptr(), sms,
+            stream)
+    _raise_on(err, "rhj_probe")
+    PROBE_LAUNCHES += 1
+    return lo, offsets, cum, total

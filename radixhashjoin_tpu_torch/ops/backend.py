@@ -7,8 +7,10 @@ picks one per engine from the catalog's value domain:
 
   dense — bounded key domain (ops/join_dense.py): the build and lookup
           kernels of csrc/tables.cu on a CUDA tensor;
-  sort  — domain-oblivious (ops/join.py): stable torch.sort + binary
-          searches.
+  sort  — domain-oblivious (ops/join.py): a stable torch.sort of the
+          right side and, on a CUDA tensor, the probe kernel of
+          csrc/probe.cu (probe_gather_count, which gathers the left side
+          itself).
 
 The wrappers also gather the inputs (rowids -> values). The reference's
 dense expansion is its sort expansion line for line in the port
@@ -21,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from .filter import gather_clamped as _g
-from .join import any_common, expand_pairs, probe_count
+from .join import any_common, expand_pairs, probe_gather_count
 from .join_dense import dense_any_common, dense_probe
 
 
@@ -48,12 +50,12 @@ def _any_common_matrix_dense(colA, colB, mat, i1: int, i2: int, count,
 # ---- sort-backend wrappers ----
 
 def _probe_rows_sort(col_l, lrows, lcount, col_r, rrows, rcount):
-    return probe_count(_g(col_l, lrows), lcount, _g(col_r, rrows), rcount)
+    return probe_gather_count(col_l, lrows, lcount, col_r, rrows, rcount)
 
 
 def _probe_matrix_sort(col_l, mat, lrow: int, lcount, col_r, rrows, rcount):
-    return probe_count(_g(col_l, mat[lrow]), lcount, _g(col_r, rrows),
-                       rcount)
+    return probe_gather_count(col_l, mat[lrow], lcount, col_r, rrows,
+                              rcount)
 
 
 def _any_common_matrix_sort(colA, colB, mat, i1: int, i2: int, count):

@@ -8,13 +8,20 @@ count; the host reads the exact pair total back, picks a padded output
 size, and `expand_pairs` materializes (left index, right index) pairs at
 that size.
 
+`probe_gather_count` is the batch driver's probe: on a CUDA tensor the
+right side's gather, mask and sort stay PyTorch and everything from the
+left gather to the total is one launch of the hand-written probe kernel
+(csrc/probe.cu, kernels.probe_cuda), with no fallback; on the CPU it is
+`probe_count` on the gathered values, the plain version the tests hold
+against the JAX package.
+
 The reference sorts the combined [right, left] values once and scatters
 the results back to operand order, because on the TPU a search is
-itself a sort of both sides. On this card `torch.searchsorted` is a
-plain binary search, and the joins' right side is a dimension whose
-sorted values sit in L2: so only the right side is sorted, the left
-lanes are only looked up, and nothing is scattered back. The outputs
-are the reference's, bit for bit.
+itself a sort of both sides. Here a search is a plain binary search (the
+probe kernel's on the card, torch.searchsorted on the CPU), and the
+joins' right side is a dimension whose sorted values sit in L2: so only
+the right side is sorted, the left lanes are only looked up, and nothing
+is scattered back. The outputs are the reference's, bit for bit.
 
 Padding sentinels: left values -1 (match nothing, all data >= 0), right
 values INT32_MAX (the catalog keeps data <= INT32_MAX - 1).
@@ -32,6 +39,9 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from .. import kernels
+from .filter import gather_clamped
 
 RIGHT_SENTINEL = 2**31 - 1
 _INT32_MAX = 2**31 - 1
@@ -74,18 +84,37 @@ def probe_count(lvals: torch.Tensor, lcount, rvals: torch.Tensor, rcount):
       total   — 0-d int32: exact number of output pairs, or -1 if the join
                 exceeds 2**31 - 1 pairs (callers raise JoinCapacityError)
     """
-    L, R = lvals.shape[0], rvals.shape[0]
-    dev = lvals.device
-    li = torch.arange(L, dtype=torch.int32, device=dev)
-    ri = torch.arange(R, dtype=torch.int32, device=dev)
+    li = torch.arange(lvals.shape[0], dtype=torch.int32, device=lvals.device)
     lv = torch.where(li < lcount, lvals, -1)
-    rv = torch.where(ri < rcount, rvals, RIGHT_SENTINEL)
-    rs, ridx = torch.sort(rv, stable=True)
-    order = ridx.to(torch.int32)
+    order, rs = _sorted_right(rvals, rcount)
     lo = torch.searchsorted(rs, lv, side="left", out_int32=True)
     counts = torch.searchsorted(rs, lv, side="right", out_int32=True) - lo
     offsets, cum, total = _counts_to_cum(counts)
     return order, lo, offsets, cum, total
+
+
+def _sorted_right(rvals: torch.Tensor, rcount):
+    """(order, sorted values) of the right side, lanes past rcount masked
+    to RIGHT_SENTINEL: int32 stable argsort and the values it sorts."""
+    ri = torch.arange(rvals.shape[0], dtype=torch.int32, device=rvals.device)
+    rv = torch.where(ri < rcount, rvals, RIGHT_SENTINEL)
+    rs, ridx = torch.sort(rv, stable=True)
+    return ridx.to(torch.int32), rs
+
+
+def probe_gather_count(col_l: torch.Tensor, lrows: torch.Tensor, lcount,
+                       col_r: torch.Tensor, rrows: torch.Tensor, rcount):
+    """probe_count of the sides' gathered values, `col_l[lrows]` and
+    `col_r[rrows]` (clamped gathers): the same (order, lo, offsets, cum,
+    total). On a CUDA tensor one launch of the probe kernel reads only
+    the live left lanes and replaces the left gather, both searches and
+    the scan; on the CPU it is probe_count itself."""
+    rvals = gather_clamped(col_r, rrows)
+    if col_l.device.type != "cuda":
+        return probe_count(gather_clamped(col_l, lrows), lcount, rvals,
+                           rcount)
+    order, rs = _sorted_right(rvals, rcount)
+    return (order, *kernels.probe_cuda(col_l, lrows, lcount, rs))
 
 
 def expand_pairs(order: torch.Tensor, lo: torch.Tensor,

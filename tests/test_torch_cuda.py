@@ -1,7 +1,8 @@
 """Card-only tests of the port: the hand-written CUDA kernels against
 their plain PyTorch versions, the partition and radix sort against
-torch.sort(stable=True), the sort join's probe on the card against the
-CPU, the engine on a CUDA device against the port's
+torch.sort(stable=True), the sort join's probe kernel (csrc/probe.cu)
+against its plain version on the card and the CPU and through Engine on
+SSB queries, the engine on a CUDA device against the port's
 oracle, the sort backend one query a call and the wave-batched
 materialized fallback (terminal joins, the dense pair-set test,
 deferred attaches, every query shape through the batch path) on CUDA
@@ -578,31 +579,192 @@ def test_terminal_join_cuda_matches_cpu(dev, ex_kind, with_mult):
                                                          "gather"))
 
 
-@pytest.mark.parametrize("R", [4096, 1 << 20])
-def test_sort_probe_cuda_matches_cpu(dev, R):
-    """The sort join's probe (ops/join.py probe_count: a stable sort of
-    the right side, a left and a right binary search of every left lane)
-    gives the card the CPU's five outputs, at a fact's width of left
-    lanes, with dead lanes holding garbage on both sides, ties in the
-    right, and the live counts as 0-d device tensors on the card."""
+# ---- the sort join's probe kernel (csrc/probe.cu)
+
+def _probe_sides(dev, L, R, kind, seed):
+    """A left column and L candidate rowids (ascending, or in an
+    expansion's order: ascending runs of repeated rowids), a right column
+    with ties, runs longer than a sector and than 256 values, and values
+    below 0 (-1 among them, which the left padding matches), and its
+    rowids with garbage past the ragged live count."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_l = L // 2 + 77
+    v = max(R // 3, 2)
+    col_l = torch.randint(-2, v + v // 8 + 1, (n_l,), generator=g,
+                          device=dev, dtype=torch.int32)
+    if kind == "ascending":
+        rows = torch.sort(torch.randint(0, n_l, (L,), generator=g,
+                                        device=dev, dtype=torch.int32)).values
+    else:
+        base = torch.sort(torch.randint(0, n_l, (L // 4 + 1,), generator=g,
+                                        device=dev, dtype=torch.int32)).values
+        reps = torch.randint(1, 8, base.shape, generator=g, device=dev)
+        rows = torch.repeat_interleave(base, reps)[:L]
+        rows = torch.cat([rows, torch.full((L - rows.numel(),), n_l - 1,
+                                           dtype=torch.int32, device=dev)])
+    col_r = torch.randint(-3, v, (R,), generator=g, device=dev,
+                          dtype=torch.int32)
+    if R >= 1000:
+        col_r[R // 4:R // 4 + 300] = v // 2       # a run of 300
+        col_r[R // 2:R // 2 + 9] = v // 3         # past one sector
+    rc = R - R // 5
+    rrows = torch.cat([torch.randperm(R, generator=g, device=dev)[:rc]
+                       .to(torch.int32),
+                       torch.randint(-9, R + 9, (R - rc,), generator=g,
+                                     device=dev, dtype=torch.int32)])
+    return g, col_l, rows, col_r, rrows, rc
+
+
+def _probe_plain(col_l, rows, lc, col_r, rrows, rc):
+    """The plain version (ops/join.py probe_count on the clamped gathers),
+    on the tensors' device."""
+    from radixhashjoin_tpu_torch.ops.filter import gather_clamped
     from radixhashjoin_tpu_torch.ops.join import probe_count
-    L = 1 << 24
-    lc, rc = L - 12_345, R - 77
-    g = torch.Generator().manual_seed(R)
-    lv = torch.randint(0, R, (L,), generator=g, dtype=torch.int32)
-    rv = torch.randint(0, R, (R,), generator=g, dtype=torch.int32)
-    lv[lc:] = torch.randint(-3, 2**31 - 1, (L - lc,), generator=g,
-                            dtype=torch.int32)
-    rv[rc:] = torch.randint(-3, 2**31 - 1, (R - rc,), generator=g,
-                            dtype=torch.int32)
-    want = probe_count(lv, lc, rv, rc)
-    got = probe_count(lv.to(dev), torch.tensor(lc, device=dev),
-                      rv.to(dev), torch.tensor(rc, device=dev))
+    return probe_count(gather_clamped(col_l, rows), lc,
+                       gather_clamped(col_r, rrows), rc)
+
+
+def _probe_equal(got, want, what):
     assert len(got) == len(want) == 5
-    for a, b in zip(got, want):
-        assert a.dtype == b.dtype == torch.int32
-        assert torch.equal(a.cpu(), b)
-    assert 0 < int(want[4]) < L
+    for name, a, b in zip(("order", "lo", "offsets", "cum", "total"), got,
+                          want):
+        assert a.dtype == b.dtype == torch.int32, (what, name)
+        assert a.shape == b.shape, (what, name)
+        assert torch.equal(a.cpu(), b.cpu()), (what, name)
+
+
+@pytest.mark.parametrize("kind", ["ascending", "expanded"])
+@pytest.mark.parametrize("R", [1, 4096, 40_000, 1 << 20, 3_000_017])
+@pytest.mark.parametrize("L", [1 << 24, 1 << 27])
+def test_sort_probe_cuda_matches_cpu(dev, L, R, kind):
+    """The sort backend's probe on the card (ops/join.py
+    probe_gather_count: the right side's sort, then one launch of the
+    probe kernel) gives the plain version's five outputs bit for bit: R
+    whole in shared memory (1, 4,096) and through the sampled index
+    (40,000, 2^20, 3,000,017), live counts 0, 1, ragged and L, each as a 0-d
+    device tensor and as a host int, garbage rowids past the count on
+    both sides (3,000,017: a ragged R, halving through the sector heads
+    before their sector). The plain version runs on the card; at 2^24
+    lanes it is also held to its CPU run at the ragged count."""
+    from radixhashjoin_tpu_torch.ops.join import probe_gather_count
+    g, col_l, rows, col_r, rrows, rc = _probe_sides(dev, L, R, kind,
+                                                    L + R + len(kind))
+    n_l = col_l.shape[0]
+    ragged = L - 12_345
+    for lc in (0, 1, ragged, L):
+        lrows = rows.clone()
+        lrows[lc:] = torch.randint(-9, n_l + 9, (L - lc,), generator=g,
+                                   device=dev, dtype=torch.int32)
+        want = _probe_plain(col_l, lrows, lc, col_r, rrows, rc)
+        if L == 1 << 24 and lc == ragged:
+            cpu = _probe_plain(col_l.cpu(), lrows.cpu(), lc, col_r.cpu(),
+                               rrows.cpu(), rc)
+            _probe_equal(want, cpu, "plain card vs cpu")
+            assert 0 < int(cpu[4])
+        for cnt in (lc, torch.tensor(lc, dtype=torch.int32, device=dev)):
+            before = kernels.PROBE_LAUNCHES
+            got = probe_gather_count(col_l, lrows, cnt, col_r, rrows, rc)
+            torch.cuda.synchronize()
+            assert kernels.PROBE_LAUNCHES == before + 1
+            _probe_equal(got, want, (lc, type(cnt)))
+        del lrows, want, got
+
+
+@pytest.mark.parametrize("R", [4096, 1 << 20])
+def test_sort_probe_cuda_overflow(dev, R):
+    """2^24 left lanes each matching a run of 256 equal right values:
+    2^32 pairs, total -1, and the plain version's wrapped offsets and
+    cum, on the card and on the CPU."""
+    from radixhashjoin_tpu_torch.ops.join import probe_gather_count
+    L = 1 << 24
+    g = torch.Generator(device=dev).manual_seed(R)
+    col_r = torch.arange(R, dtype=torch.int32, device=dev) // 256
+    col_l = torch.randint(0, R // 256, (L,), generator=g, device=dev,
+                          dtype=torch.int32)
+    rows = torch.arange(L, dtype=torch.int32, device=dev)
+    rrows = torch.randperm(R, generator=g, device=dev).to(torch.int32)
+    want = _probe_plain(col_l.cpu(), rows.cpu(), L, col_r.cpu(),
+                        rrows.cpu(), R)
+    assert int(want[4]) == -1
+    before = kernels.PROBE_LAUNCHES
+    got = probe_gather_count(col_l, rows, torch.tensor(L, device=dev),
+                             col_r, rrows, R)
+    torch.cuda.synchronize()
+    assert kernels.PROBE_LAUNCHES == before + 1
+    _probe_equal(got, want, "overflow")
+    assert int(got[3][-1]) == 0                 # 2^32 wraps to 0
+
+
+def test_sort_probe_launches_only_the_kernel_and_refuses(dev):
+    """One probe on the card launches the probe kernel and neither a
+    searchsorted nor a scan; the wrapper refuses what the kernel does not
+    take, launching nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from radixhashjoin_tpu_torch.ops.join import probe_gather_count
+    _g, col_l, rows, col_r, rrows, rc = _probe_sides(dev, 1 << 20, 1 << 20,
+                                                     "ascending", 5)
+    probe_gather_count(col_l, rows, 1000, col_r, rrows, rc)   # builds
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        probe_gather_count(col_l, rows, 1000, col_r, rrows, rc)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert any("probe_kernel" in n for n in names), names
+    assert any("probe_fill_kernel" in n for n in names), names
+    assert not any("searchsorted" in n.lower() or "Scan" in n
+                   for n in names), names
+    x = torch.arange(64, dtype=torch.int32, device=dev)
+    before = kernels.PROBE_LAUNCHES
+    with pytest.raises(TypeError):
+        kernels.probe_cuda(x.long(), x, 3, x)
+    with pytest.raises(TypeError):
+        kernels.probe_cuda(x, x, 3, x.long())
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.probe_cuda(x, x.cpu(), 3, x)
+    with pytest.raises(ValueError):
+        kernels.probe_cuda(x, x[::2], 3, x)
+    with pytest.raises(ValueError):
+        kernels.probe_cuda(x, x[:0], 0, x)
+    with pytest.raises(ValueError):
+        kernels.probe_cuda(x, x, torch.tensor(3), x)
+    assert kernels.PROBE_LAUNCHES == before
+
+
+def test_ssb_sort_backend_probes_on_the_kernel(dev):
+    """SSB queries of every template through Engine on the sort backend,
+    at the configuration's card test size, print the plain reference's
+    lines; each probe of a join is one probe-kernel launch, counted in
+    PROBE_LAUNCHES and not in LAUNCHES."""
+    from benchmark import generator
+    from benchmark.spec import Cell, load_benchmark
+    from benchmark.tests.test_benchmark_cells import sized
+    from radixhashjoin_tpu_torch.workload import parse_query
+    cell = sized(Cell(load_benchmark(), "ssb_sf20.mixed"), "card")
+    seed = 2_300_000_022
+    columns = cell.schema.generate(cell.config, seed, dev)
+    engine = Engine([Relation(list(c)) for c in columns],
+                    EngineConfig(join_backend="sort"), device=dev)
+    cycle = generator.requests(
+        cell.traffic, cell.schema.templates(cell.config, columns), seed)
+    ref = cell.reference(columns, dev)
+    seen = set()
+    for label, lines, _draws in cycle:
+        if label in seen:
+            continue
+        seen.add(label)
+        queries = [parse_query(ln) for ln in lines]
+        want = ref.lines(lines)
+        assert engine.run_batch(queries) == want, label   # warm (builds)
+        before = kernels.PROBE_LAUNCHES
+        launches = sum(kernels.LAUNCHES.values())
+        got = engine.run_batch(queries)
+        torch.cuda.synchronize()
+        assert got == want, label
+        assert kernels.PROBE_LAUNCHES > before, label
+        assert sum(kernels.LAUNCHES.values()) == launches, label
+    assert len(seen) == 13
+    assert kernels.PROBE_LAUNCHES > 0
 
 
 @pytest.mark.parametrize("count", [0, 1, 3000, 4096])

@@ -9,7 +9,10 @@ ties, empty sides (live count 0), live counts below the padded length,
 a left side far longer than the right and the reverse, live values
 below 0, a right side whose live values all tie, right values next to
 the sentinel, and a join past 2**31 - 1 pairs (65,536 x 32,768 equal
-keys), whose total both packages report as -1.
+keys), whose total both packages report as -1. The sort backend's probe
+of gathered sides (probe_gather_count, whose plain version the CPU runs)
+is held to JAX's probe_count over the same gathers, for case 1's and
+case 2's left rowids.
 """
 
 import importlib
@@ -182,6 +185,79 @@ def test_probe_sentinel_neighbours():
     got = tjoin.probe_count(_t(lv), 5, _t(rv), 3)
     _same(got, jjoin.probe_count(jnp.asarray(lv), jnp.int32(5),
                                  jnp.asarray(rv), jnp.int32(3)))
+    assert int(got[4]) == 15
+
+
+# (kind, column lengths, padded L and R, live counts, value bound): the
+# left rowids of case 1 (a filtered slot's ascending live rows) and of
+# case 2 (a matrix row in an expansion's order: runs of repeated rowids,
+# ascending, or a dimension's rowids in the order its matches came)
+GATHER_CASES = [
+    ("rows", 3000, 500, 2048, 1024, 1500, 700, 64),
+    ("rows", 3000, 500, 2048, 1024, 0, 700, 64),
+    ("rows", 3000, 500, 2048, 1024, 2048, 0, 64),
+    ("rows", 5000, 5000, 4096, 4096, 4001, 4096, 1 << 20),
+    ("expanded", 700, 300, 4096, 512, 3000, 300, 16),
+    ("expanded", 700, 300, 4096, 512, 4096, 1, 4),
+    ("permuted", 700, 900, 2048, 1024, 2000, 900, 32),
+]
+
+
+def _gather_case(seed, kind, n_l, n_r, L, R, lc, rc, vmax):
+    """Columns and padded rowids whose lanes past the live counts hold
+    garbage (negative and past the columns' ends)."""
+    rng = np.random.default_rng(seed)
+    col_l = rng.integers(0, vmax, n_l).astype(np.int32)
+    col_r = rng.integers(0, vmax, n_r).astype(np.int32)
+    if kind == "rows":
+        live = np.sort(rng.choice(n_l, lc, replace=lc > n_l))
+    elif kind == "expanded":
+        base = np.sort(rng.choice(n_l, max(lc // 4, 1)))
+        live = np.repeat(base, rng.integers(1, 8, base.size))[:lc]
+        live = np.concatenate([live, np.full(lc - live.size, n_l - 1)])
+    else:
+        live = rng.integers(0, n_l, lc)
+    lrows = np.concatenate([live, rng.integers(-9, n_l + 9, L - lc)])
+    rrows = np.concatenate([rng.permutation(n_r)[:rc] if rc <= n_r
+                            else rng.integers(0, n_r, rc),
+                            rng.integers(-9, n_r + 9, R - rc)])
+    return col_l, lrows.astype(np.int32), col_r, rrows.astype(np.int32)
+
+
+@pytest.mark.parametrize("as_tensor", [False, True])
+@pytest.mark.parametrize("case", GATHER_CASES)
+def test_probe_gather_count_matches_jax(case, as_tensor):
+    """The sort backend's probe of gathered sides (probe_gather_count's
+    plain version, what the CPU runs) equals the JAX package's
+    probe_count over the same gathers, for a live count given as an int
+    and as a 0-d tensor."""
+    kind, n_l, n_r, L, R, lc, rc, vmax = case
+    col_l, lrows, col_r, rrows = _gather_case(sum(case[1:]), *case)
+    cnt_l = torch.tensor(lc, dtype=torch.int32) if as_tensor else lc
+    got = tjoin.probe_gather_count(_t(col_l), _t(lrows), cnt_l, _t(col_r),
+                                   _t(rrows), rc)
+    jl, jr = jnp.asarray(col_l), jnp.asarray(col_r)
+    want = jjoin.probe_count(jl[jnp.asarray(lrows)], jnp.int32(lc),
+                             jr[jnp.asarray(rrows)], jnp.int32(rc))
+    _same(got, want)
+    live_r = col_r[rrows[:rc]]
+    assert int(got[4]) == int(sum((live_r == v).sum()
+                                  for v in col_l[lrows[:lc]]))
+
+
+def test_probe_gather_count_sentinel_neighbours():
+    """Column values at INT32_MAX - 1 (the largest the catalog stores)
+    match through the gathers; padding on both sides never does."""
+    col_l = np.full(16, INT32_MAX - 1, np.int32)
+    col_r = np.full(8, INT32_MAX - 1, np.int32)
+    col_r[5:] = 3
+    lrows = np.array([0, 3, 15, 2, 7] + [-1, 16, 99] * 341, np.int32)[:1024]
+    rrows = np.array([4, 0, 1] + [5, 6, 7, -2, 8] * 205, np.int32)[:1024]
+    got = tjoin.probe_gather_count(_t(col_l), _t(lrows), 5, _t(col_r),
+                                   _t(rrows), 3)
+    jl, jr = jnp.asarray(col_l), jnp.asarray(col_r)
+    _same(got, jjoin.probe_count(jl[jnp.asarray(lrows)], jnp.int32(5),
+                                 jr[jnp.asarray(rrows)], jnp.int32(3)))
     assert int(got[4]) == 15
 
 
